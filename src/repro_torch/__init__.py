@@ -1,0 +1,21 @@
+"""repro_torch: the PyTorch/CUDA port of ``repro`` (MorphingDB, a
+task-centric AI-native DBMS), for one NVIDIA H100.
+
+Port of ``src/repro/__init__.py``. The package mirrors ``repro`` module
+for module and imports neither ``jax`` nor anything of ``repro``. Ported
+so far (the task-centric query path):
+
+- ``engine``    — MiniSQL parser, logical plan + optimizer (Eq. 10/11
+  placement with ``"cuda"`` as the device), and ``MorphingSession``;
+- ``core``      — task-centric model selection (NMF subspace in torch,
+  two-phase ``ModelSelector``, ``TaskRegistry``, the mini zoo);
+- ``pipeline``  — operator DAG, cost model, ``TorchBackend``, batchers,
+  share cache and the chunked ``PipelineExecutor``;
+- ``storage``   — BLOB / decoupled stores, catalog, Mvec format;
+- ``kernels``   — hand-written CUDA kernels for Hopper (``fused_embed``)
+  with their plain PyTorch versions;
+- ``convert``   — carries zoo weights across from the reference.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU.
+"""
+__version__ = "0.1.0"

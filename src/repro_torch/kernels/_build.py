@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels: nvcc -> ``.so`` -> ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone
+into ``build/<name>-<hash>.so`` beside this file (the directory is listed
+in ``.gitignore``), with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+The hash covers the source and the flags, so an edited kernel rebuilds and
+an unchanged one is reused. A library is built and loaded at most once per
+process, under a lock, because the pipeline executor calls the kernels from
+several threads. Nothing here runs at import: the first launch (or
+:func:`build_all`) builds. There is no fallback: a missing ``nvcc`` or a
+failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}     # name -> nvcc wall seconds
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build with "
+                       "the CUDA toolkit (PATH or CUDA_HOME)")
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def _compile(name: str) -> Path:
+    out = _library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    tmp.replace(out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_compile(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def build_all() -> Dict[str, float]:
+    """Build every kernel source, one nvcc per source, all started
+    together; returns ``{name: build seconds}`` (0.0 for a library already
+    on disk)."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for f in [pool.submit(load, n) for n in names]:
+            f.result()
+    return {n: build_seconds.get(n, 0.0) for n in names}
