@@ -9,8 +9,12 @@ Phases, each raising on failure (the script then exits non-zero):
    source, all started together) and print the build seconds;
 3. hold ``fused_embed`` against its plain PyTorch version on the card at
    the main path's shapes, the calibration probe's, one wide shape and
-   N = 0, in float32 (atol 2e-5) and bfloat16 (atol 2e-2);
-4. main path: ``MorphingSession(backend="torch")`` over a ``--rows`` table
+   N = 0, in float32 (atol 2e-5) and bfloat16 (atol 2e-2); then
+   ``rmsnorm``, ``flash_attention`` and ``decode_attention`` at the LM
+   path's full-width shapes and a few ragged ones, in float32 (atol 2e-5
+   for rmsnorm, 5e-5 for attention) and bfloat16 (one bf16 ulp of the
+   value plus atol 2e-2 for rmsnorm, 2e-4 for attention);
+4. SQL path: ``MorphingSession(backend="torch")`` over a ``--rows`` table
    (gender, len, 16-wide float32 emb from ``--seed``) with a linear-mode
    zoo, so the resolved trunk runs ``fused_embed``: CREATE TASK, a
    grouped AVG cold and warm, a PREDICT over a slice. Launch counts are
@@ -18,9 +22,23 @@ Phases, each raising on failure (the script then exits non-zero):
    ``backend="numpy"`` session at atol 1e-5;
 5. the quickstart query (full 16-model zoo, 600 rows) through the
    selector, on the card;
-6. time ``fused_embed`` and its plain version with CUDA events, beside the
-   least time the card could take (H100 SXM data sheet: 3.35 TB/s HBM,
-   67 TFLOP/s float32).
+6. LM path, h2o-danube-1.8b at full width and depth (random weights from
+   ``--seed``), through ``repro_torch.models`` / ``repro_torch.launch.serve``:
+   a float32 copy, B = 4, prompt 1024, 16 teacher-forced decode steps, and
+   B = 1, prompt 8192 (past the 4096 window, so decode runs on the
+   circular cache), each logit held against the plain route (every kernel
+   replaced by its plain version, chunked attention) at atol 1e-3; then
+   the bfloat16 config through ``ServingEngine.generate`` (slots from the
+   cost model, prompt 512, gen 32), timed; then the same serving run
+   through the launcher's ``main`` as a user calls it. The launch counts
+   of both are held to 24 flash_attention per prefill, 24 (gen - 1)
+   decode_attention and 49 gen rmsnorm per slot chunk;
+7. time every kernel and its plain version with CUDA events at the main
+   paths' shapes, after holding the two together on those very inputs,
+   beside the least time the card could take (H100 SXM data
+   sheet: 3.35 TB/s HBM, 67 TFLOP/s float32, 989 TFLOP/s bf16 dense
+   tensor) and one PyTorch library call where one computes the same
+   function (``F.rms_norm``, ``F.scaled_dot_product_attention``).
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -41,7 +59,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, float32 non-tensor
+BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, bf16 dense tensor
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_F32_TOL = 5e-5             # softmax over up to 4096 keys, other order
+# bf16 attention: both sides compute in f32 and round once to bf16, so
+# they differ by at most one ulp of the value (BF16_RTOL) beyond f32 noise
+ATTN_BF16_TOL = 2e-4
+BF16_RTOL = 2.0 ** -7           # one bf16 ulp of the value
+LM_ARCH = "h2o-danube-1.8b"
+LM_F32_ATOL = 1e-3              # full-depth f32 logits, kernel vs plain
+LM_RUNS = ((4, 1024), (1, 8192))  # (B, prompt) of the f32 route checks
+LM_STEPS = 16                   # teacher-forced decode steps after each
+SERVE_PROMPT, SERVE_GEN = 512, 32
+LONG_S = 8192                   # the long prefill: past the 4096 window
 ROW_ATOL = 1e-5
 SQL_AVG = ("SELECT gender, AVG(t(emb)) FROM reviews WHERE len > 20 "
            "GROUP BY gender")
@@ -89,7 +119,101 @@ def compare_kernel(fused_embed, fused_embed_ref, dev):
     return worst
 
 
-# -- phase 4: the main path -------------------------------------------------
+def _close(got, want, dtype, atol):
+    """(max |got - want|, its largest part beyond one bf16 ulp of the value
+    in bfloat16, within atol plus that ulp)."""
+    g, w = got.float(), want.float()
+    if not g.numel():
+        return 0.0, 0.0, True
+    diff = (g - w).abs()
+    beyond = diff - (BF16_RTOL * w.abs() if dtype == torch.bfloat16 else 0.0)
+    return (float(diff.max()), max(0.0, float(beyond.max())),
+            bool((beyond <= atol).all()))
+
+
+def _attn_tol(dtype):
+    return ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+
+
+def compare_lm_kernels(dev):
+    """rmsnorm / flash_attention / decode_attention against their plain
+    versions: the LM path's full-width shapes plus ragged ones."""
+    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_ref, rmsnorm_ref)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
+             for n in ("rmsnorm", "flash_attention", "decode_attention")}
+    beyond_ulp = {n: 0.0 for n in worst}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+    def record(name, dtype, got, want, atol, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {what}: {got.shape} {got.dtype}")
+        err, beyond, ok = _close(got, want, dtype, atol)
+        check(ok, f"{name} {what} {dtype}: err {err}, beyond one ulp "
+              f"{beyond} > {atol}")
+        worst[name][dtype] = max(worst[name][dtype], err)
+        if dtype == torch.bfloat16:
+            beyond_ulp[name] = max(beyond_ulp[name], beyond)
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        errs = []
+        for n, d in ((1, 2560), (4, 2560), (32, 2560), (16384, 2560),
+                     (37, 80), (5, 7)):
+            x, w = randn((n, d), dtype), randn((d,), dtype, 0.1)
+            errs.append(record("rmsnorm", dtype, rmsnorm(x, w),
+                               rmsnorm_ref(x, w), TOL[dtype], f"{n}x{d}"))
+        log(f"compare rmsnorm {tag}: max err {max(errs):.2e}")
+        atol = _attn_tol(dtype)
+        for B, Hq, Hkv, S, D, causal, window in (
+                (1, 8, 2, 100, 80, True, 7), (2, 4, 4, 37, 128, False, 16),
+                (32, 32, 8, SERVE_PROMPT, 80, True, 4096),
+                (4, 32, 8, 1024, 80, True, 4096),
+                (1, 32, 8, LONG_S, 80, True, 4096)):
+            # the model's [B, S, H, D] layout, read through strided views
+            q = randn((B, S, Hq, D), dtype).transpose(1, 2)
+            k = randn((B, S, Hkv, D), dtype).transpose(1, 2)
+            v = randn((B, S, Hkv, D), dtype).transpose(1, 2)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            G = Hq // Hkv
+            errs = [record("flash_attention", dtype, got[:, h * G:(h + 1) * G],
+                           flash_attention_ref(q[:, h * G:(h + 1) * G],
+                                               k[:, h:h + 1], v[:, h:h + 1],
+                                               causal=causal, window=window),
+                           atol, f"B={B} S={S} kv head {h}")
+                    for h in range(Hkv)]
+            log(f"compare flash_attention {tag} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+                f"D={D} causal={causal} window={window}: max err "
+                f"{max(errs):.2e}")
+        for B, Hq, Hkv, W, D in ((32, 32, 8, 4096, 80), (4, 32, 8, 4096, 80),
+                                 (3, 16, 2, 384, 16)):
+            q = randn((B, Hq, D), dtype)
+            kc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
+            vc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
+            errs = []
+            for length in (1, 600, W,
+                           torch.randint(1, W + 1, (B,), generator=g).to(dev)):
+                if isinstance(length, int) and length > W:
+                    continue
+                errs.append(record(
+                    "decode_attention", dtype,
+                    decode_attention(q, kc, vc, length),
+                    decode_attention_ref(q, kc, vc, length), atol,
+                    f"B={B} W={W} length={length}"))
+            log(f"compare decode_attention {tag} B={B} Hq={Hq} Hkv={Hkv} W={W}"
+                f" D={D}: max err {max(errs):.2e}")
+    log("compare bf16, largest error beyond one ulp of the value: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in beyond_ulp.items()))
+    return worst
+
+
+# -- phase 4: the SQL path --------------------------------------------------
 
 def make_table(rows: int, seed: int):
     rng = np.random.default_rng(seed)
@@ -224,7 +348,204 @@ def quickstart():
         f"rows={dict((k, np.asarray(v).tolist()) for k, v in res.rows.items())}")
 
 
-# -- phase 6: timing --------------------------------------------------------
+# -- phase 6: the LM path ---------------------------------------------------
+
+LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+
+
+def _lm_kernels():
+    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
+
+
+def _zero_counts():
+    torch.cuda.synchronize()
+    for fn in _lm_kernels().values():
+        fn.launch_count = 0
+
+
+def _read_counts():
+    torch.cuda.synchronize()
+    return {n: fn.launch_count for n, fn in _lm_kernels().items()}
+
+
+@torch.inference_mode()
+def lm_teacher_forced(cfg, params, tokens, steps: int, label: str):
+    """Prefill ``tokens[:, :-steps]`` and feed the last ``steps`` tokens
+    one decode step at a time, through the kernel route and then the plain
+    route on the same params; every step's logits are held together."""
+    from repro_torch.models import build_model
+    P = tokens.shape[1] - steps
+    L = cfg.num_layers
+    out = {}
+    for use in (True, False):
+        m = build_model(cfg, attn_impl="chunked", use_kernels=use)
+        if use:
+            _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, st = m.prefill(params, tokens[:, :P], max_len=P + steps)
+        logits = [lg]
+        for t in range(P, P + steps):
+            lg, st = m.decode_step(params, st, tokens[:, t:t + 1])
+            logits.append(lg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _read_counts() if use else None
+        out[use] = (logits, secs, counts)
+        del st
+    got, k_s, counts = out[True]
+    want, p_s, _ = out[False]
+    B = tokens.shape[0]
+    diffs = []
+    for a, b in zip(got, want):
+        check(a.shape == (B, 1, cfg.padded_vocab) and bool(
+            torch.isfinite(a).all()), f"{label}: logits {a.shape} not finite")
+        diffs.append(float((a.float() - b.float()).abs().max()))
+    want_counts = {"flash_attention": L, "decode_attention": L * steps,
+                   "rmsnorm": (2 * L + 1) * (steps + 1)}
+    check(counts == want_counts, f"{label}: launches {counts} != "
+          f"{want_counts}")
+    check(max(diffs) <= LM_F32_ATOL, f"{label}: logits differ from the "
+          f"plain route by {max(diffs)}")
+    log(f"lm {label}: prefill {P} + {steps} decode steps, B={B}: kernel "
+        f"route {k_s:.3f} s, plain route {p_s:.3f} s; launches {counts}; "
+        f"max |logit - plain| prefill {diffs[0]:.3e}, decode steps "
+        f"{max(diffs[1:]):.3e} (atol {LM_F32_ATOL})")
+    return {"prefill_err": diffs[0], "decode_err": max(diffs[1:]),
+            "launches": counts, "kernel_s": k_s, "plain_s": p_s}
+
+
+@torch.inference_mode()
+def profile_decode(engine, prompts, steps: int):
+    """torch.profiler over ``steps`` decode steps of the serving engine
+    (after a prefill of ``prompts``): device time by kernel, the LM
+    kernels' share of it, and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m, params = engine.model, engine.params
+    chunk = torch.as_tensor(prompts, dtype=torch.long, device=engine.device)
+    logits, state = m.prefill(params, chunk, max_len=engine.max_len)
+    tok = logits[:, -1:, :].argmax(dim=-1)
+    tok, state = engine.serve_step(params, state, tok)     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, state = engine.serve_step(params, state, tok)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.key_averages():
+        # kernel events only: a CPU op's self device time is its kernels'
+        # time again, and counting both would count each kernel twice
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+    total = sum(by_name.values())
+    ours = {n: sum(us for k, us in by_name.items() if prefix in k)
+            for n, prefix in (("rmsnorm", "rmsnorm_kernel"),
+                              ("flash_attention", "flash_kernel"),
+                              ("decode_attention", "decode_kernel"))}
+    log(f"profile {steps} decode steps (B={chunk.shape[0]}): wall "
+        f"{wall_us / steps / 1e3:.3f} ms a step, device busy "
+        f"{total / steps / 1e3:.3f} ms a step ({total / wall_us:.3f} of the "
+        f"wall); LM kernels {', '.join(f'{n} {us / steps / 1e3:.3f} ms' for n, us in ours.items())}"
+        f" a step ({sum(ours.values()) / max(total, 1e-9):.3f} of device "
+        "time)")
+    for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"profile   {us / steps / 1e3:9.4f} ms/step  {k[:100]}")
+    return {"wall_ms_per_step": wall_us / steps / 1e3,
+            "device_ms_per_step": total / steps / 1e3,
+            "busy_share": total / wall_us,
+            "lm_kernel_ms_per_step": {n: us / steps / 1e3
+                                      for n, us in ours.items()}}
+
+
+def lm_path(args, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    res = {}
+    cfg = get_config(LM_ARCH)
+    log(f"lm config {cfg.arch_id}: L={cfg.num_layers} d={cfg.d_model} "
+        f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} hd={cfg.head_dim} "
+        f"ff={cfg.d_ff} V={cfg.vocab_size} window={cfg.sliding_window} "
+        f"params={cfg.param_count()}")
+
+    # float32 copy, kernel route against the plain route
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = build_model(cfg32).init(gen)
+    rng = np.random.default_rng(args.seed)
+    res["f32"] = {}
+    for B, P in LM_RUNS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, P + LM_STEPS))).to(dev)
+        res["f32"][(B, P)] = lm_teacher_forced(
+            cfg32, params, toks, LM_STEPS, f"f32 B={B} prompt={P}")
+    del params, toks
+    torch.cuda.empty_cache()
+
+    # the bf16 config through the serving engine, timed
+    prompt, gen_tokens = SERVE_PROMPT, SERVE_GEN
+    slots = serve.serving_slots(cfg)
+    model = build_model(cfg, attn_impl="chunked")
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    engine = serve.ServingEngine(model, params, max_len=prompt + gen_tokens,
+                                 batch_slots=slots, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (slots, prompt)).astype(
+        np.int32)
+    engine.generate(prompts[:, :64], 2)          # warm-up: handles, first launches
+    engine.stats = dict.fromkeys(engine.stats, 0)
+    _zero_counts()
+    out = engine.generate(prompts, gen_tokens)
+    counts = _read_counts()
+    st = engine.stats
+    chunks = -(-prompts.shape[0] // slots)
+    L = cfg.num_layers
+    want_counts = {"flash_attention": L * chunks,
+                   "decode_attention": L * (gen_tokens - 1) * chunks,
+                   "rmsnorm": (2 * L + 1) * gen_tokens * chunks}
+    check(out.shape == (slots, gen_tokens) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size, f"generate gave {out.shape}")
+    check(counts == want_counts, f"generate launches {counts} != "
+          f"{want_counts}")
+    decode_tps = st["decode_tokens"] / st["decode_s"]
+    log(f"lm serve bf16: slots={slots} (cost model) prompt={prompt} "
+        f"gen={gen_tokens}: prefill {st['prefill_s']:.4f} s "
+        f"({st['prefill_tokens'] / st['prefill_s']:.1f} tok/s), decode "
+        f"{st['decode_s']:.4f} s ({decode_tps:.1f} tok/s); launches "
+        f"{counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    res["profile"] = profile_decode(engine, prompts, 4)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # the launcher as a user runs it: its own weights, prompts and engine
+    argv = ["--arch", LM_ARCH, "--requests", str(slots), "--prompt-len",
+            str(prompt), "--gen", str(gen_tokens)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = serve.main(argv)
+    cli_s = time.perf_counter() - t0
+    cli_counts = _read_counts()
+    check(rc == 0, f"repro_torch.launch.serve.main exited {rc}")
+    check(cli_counts == want_counts, f"serve.main launches {cli_counts} != "
+          f"{want_counts}")
+    log(f"lm serve cli: python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{cli_s:.3f} s including weight init; launches {cli_counts}")
+    res["serve"] = {"slots": slots, "prompt": prompt, "gen": gen_tokens,
+                    "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                    "decode_tok_s": decode_tps, "launches": cli_counts,
+                    "cli_s": cli_s}
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 7: timing --------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
     for _ in range(5):
@@ -272,6 +593,93 @@ def timings(fused_embed, fused_embed_ref, dev, K):
     return res
 
 
+def _bound(nbytes: float, ops: float, peak: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed(name, kernel, plain, library, reps, bound, shape, atol):
+    """Hold kernel and plain together on the inputs to be timed, then time
+    plain, kernel, kernel, plain (and the library call) in turns."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, beyond, ok = _close(got, want, got.dtype, atol)
+    check(ok, f"{name} {shape}: err {err}, beyond one ulp {beyond} > {atol}")
+    del got, want
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kernel, reps)
+    k2 = time_ms(kernel, reps)
+    p2 = time_ms(plain, reps)
+    lib = time_ms(library, reps) if library is not None else None
+    b, by = bound
+    log(f"time {name} {shape}: max err {err:.2e} ({beyond:.2e} beyond one "
+        f"ulp); kernel {k1:.5f}/{k2:.5f} ms, plain "
+        f"{p1:.5f}/{p2:.5f} ms, library "
+        f"{'none' if lib is None else f'{lib:.5f} ms'}, bound {b:.6f} ms "
+        f"({by})")
+    return {"shape": shape, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": lib, "bound_ms": b, "bound_by": by}
+
+
+def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
+    """Each LM kernel at the bf16 serving path's shapes (and flash at the
+    8192-token prefill), with the plain version and the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_ref, rmsnorm_ref)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, bf)
+
+    res = {}
+    D, Hq, Hkv, hd, W = 2560, 32, 8, 80, 4096
+    for label, n in (("decode", slots), ("prefill", slots * prompt)):
+        x, w = randn((n, D)), randn((D,), 0.1)
+        w1 = 1.0 + w.float()
+        res[f"rmsnorm_{label}"] = _timed(
+            "rmsnorm", lambda: rmsnorm(x, w), lambda: rmsnorm_ref(x, w),
+            lambda: F.rms_norm(x, (D,), w1.to(bf), 1e-6), 200,
+            _bound(2.0 * (2 * n * D + D), 4.0 * n * D, BF16_FLOPS_PER_S),
+            [n, D], TOL[bf])
+    for label, B, S in (("prefill", slots, prompt), ("long", 1, LONG_S)):
+        q = randn((B, S, Hq, hd)).transpose(1, 2)
+        k = randn((B, S, Hkv, hd)).transpose(1, 2)
+        v = randn((B, S, Hkv, hd)).transpose(1, 2)
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+        pairs = float(band.sum())
+        res[f"flash_attention_{label}"] = _timed(
+            "flash_attention",
+            lambda: flash_attention(q, k, v, causal=True, window=W),
+            lambda: flash_attention_ref(q, k, v, causal=True, window=W),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                   enable_gqa=True),
+            20 if S <= 1024 else 3,
+            _bound(2.0 * B * S * hd * (2 * Hq + 2 * Hkv),
+                   4.0 * B * Hq * hd * pairs, BF16_FLOPS_PER_S),
+            [B, Hq, Hkv, S, hd], ATTN_BF16_TOL)
+        del q, k, v, band
+    length = prompt + gen_tokens // 2
+    q = randn((slots, Hq, hd))
+    kc = randn((slots, W, Hkv, hd)).transpose(1, 2)
+    vc = randn((slots, W, Hkv, hd)).transpose(1, 2)
+    res["decode_attention"] = _timed(
+        "decode_attention", lambda: decode_attention(q, kc, vc, length),
+        lambda: decode_attention_ref(q, kc, vc, length),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc[:, :, :length], vc[:, :, :length],
+            enable_gqa=True),
+        200,
+        _bound(2.0 * (2 * slots * Hkv * length * hd + 2 * slots * Hq * hd),
+               4.0 * slots * Hq * length * hd, BF16_FLOPS_PER_S),
+        [slots, Hq, Hkv, W, hd, length], ATTN_BF16_TOL)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -302,9 +710,13 @@ def main() -> int:
     log(f"build: {built} (wall {time.perf_counter() - t0:.2f} s)")
 
     worst = compare_kernel(fused_embed, fused_embed_ref, dev)
+    lm_worst = compare_lm_kernels(dev)
     mp = main_path(args, fused_embed)
     quickstart()
+    lm = lm_path(args, dev)
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
+    sv = lm["serve"]
+    lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
 
     main_shape = tm[(256, 16, mp["K"])]
     big = tm[(1 << 20, 16, mp["K"])]
@@ -323,10 +735,34 @@ def main() -> int:
         "launch_floor_ms": floor["ms"],
         "at_2p20_rows": {"shape": [1 << 20, 16, mp["K"]], **big},
     }]
+
+    def lm_entry(name, replaces, timing, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": sv["launches"][name],
+                "max_abs_err": lm_worst[name][torch.float32],
+                "max_abs_err_bf16": lm_worst[name][torch.bfloat16],
+                **timing, **extra}
+
+    kernels += [
+        lm_entry("rmsnorm", "src/repro/kernels/rmsnorm.py:32",
+                 lt["rmsnorm_decode"], at_prefill=lt["rmsnorm_prefill"]),
+        lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
+                 lt["flash_attention_prefill"],
+                 at_8192=lt["flash_attention_long"]),
+        lm_entry("decode_attention",
+                 "src/repro/kernels/decode_attention.py:72",
+                 lt["decode_attention"]),
+    ]
     log(f"main path: model={mp['model']} stage_count={mp['stage_count']} "
         f"cold={mp['cold_s']:.4f} s warm={mp['warm_s']:.4f} s "
         f"predict={mp['predict_s']:.4f} s "
         f"(launches cold={mp['launches']} predict={mp['predict_launches']})")
+    log(f"lm path: serve bf16 prefill {sv['prefill_s']:.4f} s, decode "
+        f"{sv['decode_tok_s']:.1f} tok/s, launches {sv['launches']}; f32 "
+        "max |logit - plain| (prefill/decode): " + ", ".join(
+            f"B={b} prompt={p}: {r['prefill_err']:.3e}/{r['decode_err']:.3e}"
+            for (b, p), r in lm["f32"].items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

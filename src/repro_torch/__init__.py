@@ -3,7 +3,7 @@ task-centric AI-native DBMS), for one NVIDIA H100.
 
 Port of ``src/repro/__init__.py``. The package mirrors ``repro`` module
 for module and imports neither ``jax`` nor anything of ``repro``. Ported
-so far (the task-centric query path):
+so far (the task-centric query path and LM serving):
 
 - ``engine``    — MiniSQL parser, logical plan + optimizer (Eq. 10/11
   placement with ``"cuda"`` as the device), and ``MorphingSession``;
@@ -12,9 +12,16 @@ so far (the task-centric query path):
 - ``pipeline``  — operator DAG, cost model, ``TorchBackend``, batchers,
   share cache and the chunked ``PipelineExecutor``;
 - ``storage``   — BLOB / decoupled stores, catalog, Mvec format;
-- ``kernels``   — hand-written CUDA kernels for Hopper (``fused_embed``)
-  with their plain PyTorch versions;
-- ``convert``   — carries zoo weights across from the reference.
+- ``configs``   — the LM zoo's model configs and registry;
+- ``models``    — the decoder-only LM, dense families (prefill, decode
+  over full or circular KV caches);
+- ``training``  — prefill / serve step functions;
+- ``launch``    — the serving launcher (``ServingEngine``);
+- ``kernels``   — hand-written CUDA kernels for Hopper (``fused_embed``,
+  ``rmsnorm``, ``flash_attention``, ``decode_attention``) with their
+  plain PyTorch versions;
+- ``convert``   — carries zoo weights and LM params across from the
+  reference.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.
 """

@@ -1,16 +1,23 @@
 """Carry weights across from the reference package.
 
 No reference module: the port cannot import ``repro``, so conversion works
-by duck typing. Any object with numpy-convertible ``W`` and ``centers``
-(or ``None``), a ``sigma``, ``mode``, ``name`` and ``source_family`` —
-the reference's ``repro.core.zoo.ZooModel`` among them — becomes the
-port's :class:`repro_torch.core.zoo.ZooModel` with the same weights.
+by duck typing and through numpy.
+
+- :func:`zoo_from_numpy`: any object with numpy-convertible ``W`` and
+  ``centers`` (or ``None``), a ``sigma``, ``mode``, ``name`` and
+  ``source_family`` (the reference's ``repro.core.zoo.ZooModel`` among
+  them) becomes the port's :class:`repro_torch.core.zoo.ZooModel` with the
+  same weights.
+- :func:`lm_params_from_numpy`: the reference LM's params (a nested dict
+  of arrays, stacked ``[L, ...]`` under ``"layers"``) become the port's
+  dict of tensors with the same keys, dtypes and values.
 """
 from __future__ import annotations
 
 from typing import Iterable, List
 
 import numpy as np
+import torch
 
 from repro_torch.core.zoo import ZooModel
 
@@ -28,3 +35,21 @@ def zoo_from_numpy(models: Iterable) -> List[ZooModel]:
             sigma=float(m.sigma),
             meta=dict(getattr(m, "meta", None) or {})))
     return out
+
+
+def _tensor_from_numpy(arr, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (it is ml_dtypes' type, which
+        # torch.from_numpy refuses): carry the bit pattern across
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """Nested dict of numpy-convertible arrays (float32 or bfloat16) ->
+    the same nested dict of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, device)

@@ -2,6 +2,7 @@
 
 Port of ``src/repro/kernels/__init__.py``.
 """
-from repro_torch.kernels.ops import fused_embed
+from repro_torch.kernels.ops import (decode_attention, flash_attention,
+                                     fused_embed, rmsnorm)
 
-__all__ = ["fused_embed"]
+__all__ = ["decode_attention", "flash_attention", "fused_embed", "rmsnorm"]

@@ -13,6 +13,9 @@ process, under a lock, because the pipeline executor calls the kernels from
 several threads. Nothing here runs at import: the first launch (or
 :func:`build_all`) builds. There is no fallback: a missing ``nvcc`` or a
 failed build raises.
+
+:class:`Kernel` is what every wrapper shares around its launch: the device
+check, the current stream, the CUDA error and the launch count.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -35,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 build_seconds: Dict[str, float] = {}     # name -> nvcc wall seconds
 
 
@@ -83,6 +89,47 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_compile(name)))
             _LIBS[name] = lib
         return lib
+
+
+def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU, False if all lie on one CUDA
+    device; raises ``ValueError`` otherwise."""
+    devs = {t.device for t in tensors}
+    if devs == {torch.device("cpu")}:
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: inputs on {sorted(map(str, devs))}; all "
+                         "must be on the CPU or on one CUDA device")
+    return False
+
+
+class Kernel:
+    """One C entry point ``symbol`` of ``csrc/<lib>.cu``. Its last
+    parameter is the CUDA stream, and it returns ``cudaGetLastError()``.
+    The library is loaded at the first launch."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn = None
+
+    def launch(self, wrapper: Callable, device: torch.device, *args,
+               what: str) -> None:
+        """Run the kernel on ``device``'s current stream; raise on a CUDA
+        error, else add one to ``wrapper.launch_count``."""
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                               f"CUDA error {err} at {what}")
+        with _COUNT_LOCK:
+            wrapper.launch_count += 1
 
 
 def build_all() -> Dict[str, float]:

@@ -1,0 +1,96 @@
+"""Flash attention (causal / sliding-window, GQA) in one CUDA kernel.
+
+Port of ``src/repro/kernels/flash_attention.py``. The reference is a
+Pallas TPU kernel whose grid walks kv blocks in order for each q block and
+needs S to divide both block sizes; here the kernel is hand-written CUDA
+C++ for Hopper (``csrc/flash_attention.cu``, built by
+:mod:`repro_torch.kernels._build`): one block per (batch, q head, 64-row q
+tile) loops over the kv tiles its rows can reach, and any S is taken.
+
+The public signature keeps the reference's ``[B, H, S, D]`` layout. The
+kernel reads every operand through its strides (last dim contiguous), so
+the model hands in its ``[B, S, H, D]`` activations as ``transpose(1, 2)``
+views and gets the output back in the same layout without a copy: the
+output takes q's memory layout.
+
+The wrapper dispatches on where the input lies: CPU tensors take the plain
+PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`),
+CUDA tensors launch the kernel on the current stream or raise. There is no
+fallback between the two. ``flash_attention.launch_count`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+MAX_HEAD_DIM = 128
+_GRID_MAX = 65535
+_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL = _build.Kernel("flash_attention", "flash_attention",
+                        [ctypes.c_void_p] * 4
+                        + [ctypes.POINTER(ctypes.c_longlong)]
+                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    """What the kernel takes; the plain version is held to the same."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         "[B, Hq, Sq, D] and two [B, Hkv, Sk, D]")
+    B, Hq, _, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree on B or D, or Hq is "
+                         "not a multiple of Hkv")
+    if Sk == 0:
+        raise ValueError("flash_attention: k and v hold no positions")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes q {q.dtype}, k {k.dtype}, "
+                        f"v {v.dtype}; all must be float32 or all bfloat16")
+    if _build.on_cpu("flash_attention", q, k, v):
+        return
+    if D > 1 and any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the last dim of q, k and v must "
+                         "be contiguous")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    if B > _GRID_MAX or Hq > _GRID_MAX or max(q.shape[2], Sk) > 2 ** 31 - 128:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} exceeds "
+                         "the kernel's grid")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D] in q's
+    dtype and memory layout. Mask: ``kpos <= qpos`` if ``causal``,
+    ``kpos > qpos - window`` if ``window``; scale ``D ** -0.5``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+    _KERNEL.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), strides, B, Hq, Hkv, Sq, Sk, D,
+                   int(bool(causal)), int(window or 0), float(D ** -0.5),
+                   int(q.dtype == torch.bfloat16),
+                   what=f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
+    return o
+
+
+flash_attention.launch_count = 0

@@ -14,7 +14,6 @@ launches (under a lock: the pipeline executor calls from several threads).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -22,21 +21,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_embed_ref
 
 _INT_MAX = 2 ** 31 - 1
-_COUNT_LOCK = threading.Lock()
-_ENTRY = {torch.float32: "fused_embed_f32", torch.bfloat16: "fused_embed_bf16"}
-_FNS = {}
-
-
-def _kernel_fn(dtype: torch.dtype):
-    fn = _FNS.get(dtype)
-    if fn is None:
-        fn = getattr(_build.load("fused_embed"), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FNS[dtype] = fn
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+_KERNELS = {dtype: _build.Kernel("fused_embed", symbol, _ARGTYPES)
+            for dtype, symbol in ((torch.float32, "fused_embed_f32"),
+                                  (torch.bfloat16, "fused_embed_bf16"))}
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -44,16 +32,13 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fused_embed: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} are not [N, D] and [D, K]")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _KERNELS:
         raise TypeError(f"fused_embed: x dtype {x.dtype} not in "
                         "(float32, bfloat16)")
     if w.dtype != torch.float32:
         raise TypeError(f"fused_embed: w dtype {w.dtype} is not float32")
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if _build.on_cpu("fused_embed", x, w):
         return
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"fused_embed: x on {x.device}, w on {w.device}; "
-                         "both must be on the CPU or on one CUDA device")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_embed: x and w must be contiguous")
     n, d = x.shape
@@ -74,16 +59,10 @@ def fused_embed(x: torch.Tensor, w: torch.Tensor, *, mean: float = 0.0,
     out = torch.empty((n, k), dtype=x.dtype, device=x.device)
     if n == 0 or k == 0:
         return out
-    fn = _kernel_fn(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, k,
-                 float(mean), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_embed kernel launch failed: CUDA error "
-                           f"{err} at x {tuple(x.shape)}, w {tuple(w.shape)}")
-    with _COUNT_LOCK:
-        fused_embed.launch_count += 1
+    _KERNELS[x.dtype].launch(
+        fused_embed, x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+        d, k, float(mean), float(scale),
+        what=f"x {tuple(x.shape)}, w {tuple(w.shape)}")
     return out
 
 

@@ -2,13 +2,68 @@
 
 Port of ``src/repro/kernels/ref.py``. Each hand-written kernel of the
 port has its plain version here: the wrapper takes it for a tensor on the
-CPU, and the tests and ``chip_smoke.py`` hold the kernel against it. Only
-``fused_embed`` is ported so far; the attention and normalisation oracles
-come with their kernels.
+CPU, and the tests and ``chip_smoke.py`` hold the kernel against it. The
+math is float32 whatever the inputs' dtype; the output takes the dtype of
+``x`` (or ``q``).
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. Query and
+    key positions both start at 0; GQA maps q head h to kv head
+    ``h // (Hq // Hkv)``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, Sq, D).to(torch.float32) * (D ** -0.5)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.to(torch.float32))
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """q: [B, Hq, D]; caches: [B, Hkv, S, D]; attends to positions below
+    ``length`` (an int, or [B] for one length per row)."""
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, D).to(torch.float32) * (D ** -0.5)
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.to(torch.float32))
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
+    valid = torch.arange(S, device=q.device) < length
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """x: [N, D]; w: [D] (1+w scaling)."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * (1.0 + w.to(torch.float32))).to(x.dtype)
 
 
 def fused_embed_ref(x: torch.Tensor, w: torch.Tensor, mean: float = 0.0,

@@ -1,0 +1,334 @@
+"""Attention: GQA projections, prefill attention and single-token decode
+attention over (full / windowed) KV caches.
+
+Port of ``src/repro/models/attention.py``. ``naive_attention`` and
+``chunked_attention`` are the reference's two XLA implementations in plain
+torch: the tests' oracles, the plain route (``use_kernels=False``) and the
+path of a softcap config on the CPU. Otherwise :func:`attn_apply` runs the
+port's ``flash_attention`` kernel for both ``impl="naive"`` and
+``impl="chunked"``, since both compute the function the reference's
+Pallas kernel computes (the same causal / window mask at ``q_offset = 0``
+with ``Sq == Sk``), and :func:`attn_decode_apply` runs the port's
+``decode_attention`` kernel with ``length = min(index + 1, W)``, which is
+the reference's slot mask exactly: before a circular cache wraps the valid
+slots are ``0..index``, after it wraps all ``W`` are, and softmax does not
+depend on slot order. On a CPU tensor each kernel wrapper runs its plain
+version. A softcap config raises on the card: the kernels take no softcap
+(no registered config sets one).
+
+Layouts are the reference's: activations ``[B, S, H, D]``, caches
+``[L, B, W, Hkv, D]``. The kernels read them through ``transpose(1, 2)``
+views (strides), so neither a per-layer transpose nor a per-step cache
+copy is made. :func:`attn_decode_apply` writes the new key and value into
+the cache in place where the reference returns an updated copy
+(``dynamic_update_slice``). The reference's ``lshard`` annotations are
+no-ops on one device and are dropped.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import \
+    decode_attention as decode_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope, dtype_of
+from repro_torch.models.spec import P
+
+NEG_INF = -2.0 ** 30
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    for d in range(cap, 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    s = {
+        "wq": P((d, cfg.num_heads, hd), ("embed", "q_heads", "head_dim")),
+        "wk": P((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": P((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": P((cfg.num_heads, hd, d), ("q_heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = P((hd,), ("head_dim",), init="zeros")
+        s["k_norm"] = P((hd,), ("head_dim",), init="zeros")
+    return s
+
+
+def _qk_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    y = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + w.to(torch.float32))).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Core softmax-attention (plain torch)
+# ---------------------------------------------------------------------------
+
+def _softcap(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    return torch.tanh(s / softcap) * softcap if softcap else s
+
+
+def naive_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Reference attention; q: [B,Sq,Hq,D], k/v: [B,Sk,Hkv,D]."""
+    B, Sq, Hq, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = Hq // K
+    q = q.reshape(B, Sq, K, G, D) * (D ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = _softcap(s, softcap)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      q_chunk: int = 512, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Flash-style online-softmax attention, FLOP-exact for causal/windowed.
+
+    Python loop over Q chunks; each runs a loop over exactly the KV chunks
+    it can see. Memory per step: [B, K, G, q_chunk, kv_chunk].
+    """
+    B, S, Hq, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = Hq // K
+    if S % q_chunk:  # adapt chunks to ragged lengths
+        q_chunk = _largest_divisor(S, q_chunk)
+    if Sk % kv_chunk:
+        kv_chunk = _largest_divisor(Sk, kv_chunk)
+    if causal and S != Sk:
+        raise ValueError("causal chunked attention needs Sq == Sk")
+    if S <= q_chunk or q_chunk < 64 or kv_chunk < 64:
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    nq, nk = S // q_chunk, Sk // kv_chunk
+    scale = D ** -0.5
+    qc = q.reshape(B, nq, q_chunk, K, G, D)
+    kc = k.reshape(B, nk, kv_chunk, K, D)
+    vc = v.reshape(B, nk, kv_chunk, K, D)
+
+    outs = []
+    for i in range(nq):
+        q_i = qc[:, i].to(torch.float32) * scale  # [B,Cq,K,G,D]
+        q_lo, q_hi = i * q_chunk, (i + 1) * q_chunk - 1
+        j_hi = (q_hi // kv_chunk) if causal else (nk - 1)
+        j_lo = 0
+        if window is not None:
+            j_lo = max(0, (q_lo - window + 1) // kv_chunk)
+        m = torch.full((B, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, K, G, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, K, G, q_chunk, D), dtype=torch.float32,
+                          device=q.device)
+        qpos = q_lo + torch.arange(q_chunk, device=q.device)
+        for j in range(j_lo, j_hi + 1):
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_i,
+                             kc[:, j].to(torch.float32))
+            s = _softcap(s, softcap)
+            kpos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+            msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                             device=q.device)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p,
+                              vc[:, j].to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out_i = acc / torch.clamp(l[..., None], min=1e-30)    # [B,K,G,Cq,D]
+        outs.append(out_i.permute(0, 3, 1, 2, 4))             # [B,Cq,K,G,D]
+    out = torch.cat(outs, dim=1).reshape(B, S, Hq, D)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """Full or windowed (circular) KV cache for one attention layer-stack.
+
+    k/v: [L, B, W, Hkv, D]; index: next absolute position (a host int).
+    W == max_len for full caches, == window for circular caches. Decode
+    writes into k/v in place.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int
+
+
+def init_kv_cache(cfg, layers: int, batch: int, max_len: int,
+                  window: Optional[int] = None, dtype=torch.bfloat16,
+                  device=None) -> KVCache:
+    W = min(window, max_len) if window else max_len
+    shape = (layers, batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def decode_attention(q, k_cache, v_cache, index: int, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """One-token attention in plain torch, as the reference computes it.
+    q: [B,1,Hq,D]; caches: [B,W,Hkv,D].
+
+    ``index`` is the absolute position of the new token; cache slot layout
+    is circular when ``window`` is set (slot = pos % W), linear otherwise.
+    The scaled q and the probabilities are rounded to the cache's dtype
+    before the products, as the reference does; products sum in f32.
+    """
+    B, _, Hq, D = q.shape
+    W, K = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // K
+    qf = (q.reshape(B, K, G, D) * (D ** -0.5)).to(k_cache.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qf.to(torch.float32),
+                     k_cache.to(torch.float32))
+    s = _softcap(s, softcap)
+    slots = torch.arange(W, device=q.device)
+    if window is None:
+        valid = slots <= index
+    else:
+        pos_of_slot = index - torch.remainder(index - slots, W)
+        valid = ((pos_of_slot >= 0) & (pos_of_slot > index - W)
+                 & (pos_of_slot <= index))
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd",
+                       p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block (projections + rope + attention)
+# ---------------------------------------------------------------------------
+
+def _project(cfg, p: dict, x: torch.Tensor):
+    """x [B, S, d] -> q [B,S,Hq,hd], k / v [B,S,Hkv,hd] in cfg.dtype."""
+    dt = dtype_of(cfg)
+    B, S, _ = x.shape
+
+    def proj(w):
+        return torch.matmul(x, w.to(dt).reshape(w.shape[0], -1)).reshape(
+            B, S, w.shape[1], w.shape[2])
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _out_proj(cfg, p: dict, o: torch.Tensor) -> torch.Tensor:
+    wo = p["wo"].to(dtype_of(cfg))
+    B, S = o.shape[:2]
+    return torch.matmul(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
+
+
+def _kernel_route(cfg, x: torch.Tensor, use_kernels: bool) -> bool:
+    """Whether attention runs through the port's kernels (their wrappers
+    take the plain version for a CPU tensor)."""
+    if not use_kernels:
+        return False
+    if cfg.attn_logit_softcap:
+        if x.is_cuda:
+            raise NotImplementedError(
+                "attention logit softcap on the card: the port's attention "
+                "kernels take no softcap (ROADMAP Queue 3); no registered "
+                "config sets one")
+        return False
+    return True
+
+
+def attn_apply(cfg, p: dict, x: torch.Tensor, *,
+               positions: Optional[torch.Tensor], causal: bool = True,
+               window: Optional[int] = None, impl: str = "chunked",
+               kv_for_cache: bool = False, use_kernels: bool = True):
+    """Multi-head GQA attention over a full sequence.
+
+    Returns (out, (k, v)) — roped k and raw v for cache seeding when
+    ``kv_for_cache``. ``impl`` picks the plain implementation when the
+    plain route runs; the kernel route computes the same function.
+    """
+    q, k, v = _project(cfg, p, x)
+    if positions is not None:  # rope; None for non-positional (cross-attn)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if _kernel_route(cfg, x, use_kernels):
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            window=window).transpose(1, 2)
+    elif impl == "naive":
+        o = naive_attention(q, k, v, causal=causal, window=window,
+                            softcap=cfg.attn_logit_softcap)
+    else:
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_logit_softcap)
+    out = _out_proj(cfg, p, o)
+    if kv_for_cache:
+        return out, (k, v)
+    return out, None
+
+
+def attn_decode_apply(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, index: int, *,
+                      window: Optional[int] = None,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """One-token attention step. x: [B,1,D]; caches [B,W,Hkv,D], updated
+    in place at the new token's slot. Returns out [B,1,D]."""
+    q, k, v = _project(cfg, p, x)
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
+                     device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    W = k_cache.shape[1]
+    if window is not None:
+        slot = index % W
+    elif index < W:
+        slot = index
+    else:
+        raise ValueError(f"decode position {index} is past the full cache's "
+                         f"{W} slots (prefill with a larger max_len)")
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    if _kernel_route(cfg, x, use_kernels):
+        B, _, Hq, D = q.shape
+        o = decode_attention_kernel(
+            q.reshape(B, Hq, D), k_cache.transpose(1, 2),
+            v_cache.transpose(1, 2), min(index + 1, W)).reshape(B, 1, Hq, D)
+    else:
+        o = decode_attention(q, k_cache, v_cache, index, window=window,
+                             softcap=cfg.attn_logit_softcap)
+    return _out_proj(cfg, p, o)

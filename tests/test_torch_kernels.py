@@ -85,3 +85,164 @@ def test_unsupported_dtype_raises(xdt, wdt):
 def test_shape_mismatch_raises():
     with pytest.raises(ValueError):
         fused_embed(torch.zeros((4, 16)), torch.zeros((15, 8)))
+
+
+# -- rmsnorm, flash_attention, decode_attention ------------------------------
+# Plain versions against ``repro.kernels.ref`` at ``tests/test_kernels.py``'s
+# shapes, one interpret-mode case of each Pallas kernel, and ragged shapes
+# (N, S not a multiple of any block) against ``repro.kernels.ref`` only.
+# Float32 throughout, tolerance 2e-5 (summation order differs).
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
+                                 rmsnorm)
+from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
+                                     flash_attention_ref, rmsnorm_ref)
+
+F32_TOL = 2e-5
+
+
+def _normal(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _err(got, want):
+    return float(np.abs(np.asarray(got, np.float32)
+                        - np.asarray(want, np.float32)).max())
+
+
+@pytest.mark.parametrize("N,D", [(256, 512), (512, 1024), (128, 384),
+                                 (1, 2560), (37, 80), (300, 2560)])
+def test_rmsnorm_plain_matches_reference(N, D):
+    x, w = _normal((N, D), 0), _normal((D,), 1, 0.1)
+    want = jref.rmsnorm_ref(jnp.asarray(x), jnp.asarray(w))
+    got = rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == (N, D)
+    assert _err(got.numpy(), want) < F32_TOL
+    # the wrapper takes the plain version for a CPU tensor, without a launch
+    before = rmsnorm.launch_count
+    np.testing.assert_array_equal(
+        rmsnorm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        got.numpy())
+    assert rmsnorm.launch_count == before
+
+
+def test_rmsnorm_pallas_interpret_matches_port():
+    x, w = _normal((256, 512), 2), _normal((512,), 3, 0.1)
+    want = ref_ops.rmsnorm(jnp.asarray(x), jnp.asarray(w), block_rows=64,
+                           interpret=True)
+    got = rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+FLASH_SHAPES = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (1, 8, 8, 256, 16),
+                (2, 8, 1, 128, 64)]
+RAGGED_FLASH = [(1, 4, 2, 100, 80), (2, 4, 1, 37, 32), (1, 2, 2, 1, 16)]
+
+
+def _qkv(B, Hq, Hkv, S, D, seed):
+    return (_normal((B, Hq, S, D), seed), _normal((B, Hkv, S, D), seed + 1),
+            _normal((B, Hkv, S, D), seed + 2))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_SHAPES + RAGGED_FLASH)
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 96), (True, 7)])
+def test_flash_attention_plain_matches_reference(B, Hq, Hkv, S, D, causal,
+                                                 window):
+    q, k, v = _qkv(B, Hq, Hkv, S, D, seed=S)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, window=window)
+    assert got.shape == (B, Hq, S, D)
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+def test_flash_attention_pallas_interpret_matches_port():
+    q, k, v = _qkv(2, 4, 2, 256, 64, seed=5)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True, window=96,
+                                   block_q=64, block_k=128, interpret=True)
+    got = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, window=96)
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+def test_flash_attention_strided_views_match_contiguous():
+    """The model hands in [B, S, H, D] activations as transpose(1, 2)
+    views; the result must not depend on the layout."""
+    q, k, v = _qkv(2, 4, 2, 40, 16, seed=9)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want = flash_attention(tq, tk, tv, causal=True, window=16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (tq, tk, tv)]
+    got = flash_attention(*views, causal=True, window=16)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+DECODE_SHAPES = [(2, 8, 2, 512, 64), (1, 4, 4, 256, 32), (3, 16, 2, 384, 16),
+                 (2, 4, 1, 100, 80)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", DECODE_SHAPES)
+@pytest.mark.parametrize("length_frac", [1.0, 0.6, 0.1])
+def test_decode_attention_plain_matches_reference(B, Hq, Hkv, S, D,
+                                                  length_frac):
+    q = _normal((B, Hq, D), S)
+    kc, vc = _normal((B, Hkv, S, D), 1), _normal((B, Hkv, S, D), 2)
+    L = max(1, int(S * length_frac))
+    want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(kc),
+                                     jnp.asarray(vc), L)
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                           torch.from_numpy(vc), L)
+    assert got.shape == (B, Hq, D)
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+def test_decode_attention_per_row_lengths():
+    q = _normal((3, 8, 32), 4)
+    kc, vc = _normal((3, 2, 70, 32), 5), _normal((3, 2, 70, 32), 6)
+    lengths = [1, 33, 70]
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                           torch.from_numpy(vc), torch.tensor(lengths))
+    for b, L in enumerate(lengths):
+        want = jref.decode_attention_ref(jnp.asarray(q[b:b + 1]),
+                                         jnp.asarray(kc[b:b + 1]),
+                                         jnp.asarray(vc[b:b + 1]), L)
+        assert _err(got[b:b + 1].numpy(), want) < F32_TOL
+
+
+def test_decode_attention_pallas_interpret_matches_port():
+    q = _normal((2, 8, 64), 7)
+    kc, vc = _normal((2, 2, 512, 64), 8), _normal((2, 2, 512, 64), 9)
+    want = ref_ops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                    jnp.asarray(vc), 300, block_k=128,
+                                    interpret=True)
+    got = decode_attention_ref(torch.from_numpy(q), torch.from_numpy(kc),
+                               torch.from_numpy(vc), 300)
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+@pytest.mark.parametrize("call,exc", [
+    (lambda: rmsnorm(torch.zeros(4, 8), torch.zeros(7)), ValueError),
+    (lambda: rmsnorm(torch.zeros(4, 8, dtype=torch.float16),
+                     torch.zeros(8)), TypeError),
+    (lambda: flash_attention(torch.zeros(1, 3, 8, 16), torch.zeros(1, 2, 8, 16),
+                             torch.zeros(1, 2, 8, 16)), ValueError),
+    (lambda: flash_attention(torch.zeros(1, 2, 8, 16), torch.zeros(1, 1, 8, 16),
+                             torch.zeros(1, 1, 8, 16), window=0), ValueError),
+    (lambda: flash_attention(torch.zeros(1, 2, 8, 16),
+                             torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16),
+                             torch.zeros(1, 1, 8, 16)), TypeError),
+    (lambda: decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 2, 8, 16),
+                              torch.zeros(2, 2, 8, 16), 2.5), TypeError),
+    (lambda: decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 2, 8, 16),
+                              torch.zeros(2, 2, 8, 16),
+                              torch.tensor([1, 2, 3])), ValueError),
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(call, exc):
+    with pytest.raises(exc):
+        call()

@@ -1,11 +1,18 @@
-"""The hand-written CUDA ``fused_embed`` against its plain PyTorch version,
-on the card. Skips where there is no CUDA device; imports no jax, so it
-runs on a machine that has only the port's dependencies:
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Skips where there is no CUDA device; imports no jax, so it runs
+on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: 2e-5 in float32 (the kernel sums in another order than the
-plain version's matmul), 2e-2 in bfloat16 (the output's own rounding).
+Tolerances: 2e-5 in float32 for ``fused_embed`` and ``rmsnorm`` (the
+kernel sums in another order than the plain version), 5e-5 in float32 for
+the attention kernels (softmax sums over up to 4096 keys in another
+order). In bfloat16, one bf16 ulp of the value (2^-7 relative), since the
+output's own rounding may land on either side of a rounding boundary,
+plus 2e-2 for ``fused_embed`` and ``rmsnorm`` and 2e-4 for the attention
+kernels: both sides of those compute in float32 and round once, and their
+outputs (about 0.02 to 0.07 over thousands of keys) are too small for a
+looser bound to catch a kernel that drops a share of the keys.
 """
 import numpy as np
 import pytest
@@ -64,3 +71,148 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
         fused_embed(x.t(), torch.zeros((8, 4), device=cuda_device))
     with pytest.raises(TypeError):
         fused_embed(x.half(), w)
+
+
+# -- rmsnorm, flash_attention, decode_attention ------------------------------
+
+from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
+                                 rmsnorm)
+from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
+                                     flash_attention_ref, rmsnorm_ref)
+
+ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-4}
+BF16_RTOL = 2.0 ** -7
+
+
+def _assert_close(got, want, dtype, atol=None):
+    """|got - want| <= atol (+ one bf16 ulp of want in bfloat16)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    if atol is None:
+        atol = TOL[dtype]
+    bound = atol + (BF16_RTOL * w.abs() if dtype == torch.bfloat16 else 0.0)
+    excess = float(((g - w).abs() - bound).max())
+    assert excess <= 0.0, (float((g - w).abs().max()), dtype)
+
+
+def _randn(shape, seed, dev, dtype):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D", [(1, 2560), (4, 2560), (37, 2560),
+                                 (4096, 2560), (256, 512), (128, 384),
+                                 (33, 80), (5, 7)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_matches_plain(cuda_device, dtype, N, D, wdtype):
+    x = _randn((N, D), N + D, cuda_device, dtype)
+    w = (_randn((D,), 3, cuda_device, torch.float32) * 0.1).to(wdtype)
+    before = rmsnorm.launch_count
+    got = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launch_count == before + 1
+    _assert_close(got, rmsnorm_ref(x, w), dtype)
+
+
+def _flash_check(q, k, v, causal, window, dtype):
+    """Kernel against its plain version, one kv head's query group at a time
+    so the plain version's [G, S, S] scores stay small at S = 8192."""
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    G = q.shape[1] // k.shape[1]
+    for h in range(k.shape[1]):
+        want = flash_attention_ref(q[:, h * G:(h + 1) * G], k[:, h:h + 1],
+                                   v[:, h:h + 1], causal=causal,
+                                   window=window)
+        _assert_close(got[:, h * G:(h + 1) * G], want, dtype,
+                      ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window", [
+    (1, 2, 1, 128, 32, True, None), (2, 4, 2, 256, 64, False, None),
+    (1, 8, 8, 256, 16, True, 96), (2, 8, 1, 128, 64, True, None),
+    (1, 4, 2, 100, 80, True, 7), (2, 4, 4, 37, 128, False, 16),
+    (32, 32, 8, 512, 80, True, 4096), (1, 32, 8, 1024, 80, True, 4096),
+    (1, 32, 8, 8192, 80, True, 4096)])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, B, Hq, Hkv,
+                                            S, D, causal, window):
+    q = _randn((B, Hq, S, D), 1, cuda_device, dtype)
+    k = _randn((B, Hkv, S, D), 2, cuda_device, dtype)
+    v = _randn((B, Hkv, S, D), 3, cuda_device, dtype)
+    before = flash_attention.launch_count
+    _flash_check(q, k, v, causal, window, dtype)
+    assert flash_attention.launch_count == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_the_models_layout(cuda_device):
+    """[B, S, H, D] activations as transpose(1, 2) views: no copy in, the
+    output comes back in the same layout."""
+    q = _randn((2, 300, 32, 80), 4, cuda_device, torch.bfloat16)
+    k = _randn((2, 300, 8, 80), 5, cuda_device, torch.bfloat16)
+    v = _randn((2, 300, 8, 80), 6, cuda_device, torch.bfloat16)
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, window=128)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True, window=128)
+    _assert_close(got, want, torch.bfloat16, ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 8, 2, 512, 64),
+                                          (3, 16, 2, 384, 16),
+                                          (4, 32, 8, 4096, 80)])
+@pytest.mark.parametrize("length", [1, 600, 4096, "rows"])
+def test_cuda_decode_attention_matches_plain(cuda_device, dtype, B, Hq, Hkv,
+                                             S, D, length):
+    q = _randn((B, Hq, D), 7, cuda_device, dtype)
+    # the model's [B, W, Hkv, D] cache, read through transpose(1, 2) views
+    kc = _randn((B, S, Hkv, D), 8, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, S, Hkv, D), 9, cuda_device, dtype).transpose(1, 2)
+    if length == "rows":
+        length = torch.randint(1, S + 1, (B,), device=cuda_device)
+    before = decode_attention.launch_count
+    got = decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert decode_attention.launch_count == before + 1
+    want = decode_attention_ref(q, kc, vc, length)
+    _assert_close(got, want, dtype, ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros((1, 4, 16, 144), device=cuda_device)
+    with pytest.raises(ValueError):          # head dim above 128
+        flash_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 16, 32), device=cuda_device)
+    with pytest.raises(ValueError):          # devices differ
+        flash_attention(q, q[:, :2].cpu(), q[:, :2].cpu())
+    with pytest.raises(ValueError):          # last dim not contiguous
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                        q[:, :2], q[:, :2])
+    qd = torch.zeros((2, 64, 64), device=cuda_device)
+    kc = torch.zeros((2, 1, 32, 64), device=cuda_device)
+    with pytest.raises(ValueError):          # G * D above 2048
+        decode_attention(qd, kc, kc, 4)
+    with pytest.raises(ValueError):          # length on another device
+        decode_attention(qd[:, :8], kc, kc, torch.tensor([1, 2]))
+    with pytest.raises(ValueError):          # w on another device
+        rmsnorm(torch.zeros((4, 8), device=cuda_device), torch.zeros(8))
+
+
+@pytest.mark.cuda
+def test_softcap_config_raises_on_the_card(cuda_device):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    cfg = smoke_config("h2o-danube-1.8b").replace(attn_logit_softcap=30.0)
+    m = build_model(cfg)
+    params = m.init(torch.Generator(device=cuda_device).manual_seed(0))
+    with pytest.raises(NotImplementedError):
+        m.apply(params, torch.zeros((1, 8), dtype=torch.long,
+                                    device=cuda_device))
