@@ -11,9 +11,10 @@ Phases, each raising on failure (the script then exits non-zero):
    the main path's shapes, the calibration probe's, one wide shape and
    N = 0, in float32 (atol 2e-5) and bfloat16 (atol 2e-2); then
    ``rmsnorm``, ``flash_attention`` and ``decode_attention`` at the LM
-   path's full-width shapes and a few ragged ones, in float32 (atol 2e-5
-   for rmsnorm, 5e-5 for attention) and bfloat16 (one bf16 ulp of the
-   value plus atol 2e-2 for rmsnorm, 2e-4 for attention);
+   path's full-width shapes and a few ragged ones (the attention kernels
+   also at their q / kv tile edges and decode's split edges), in float32
+   (atol 2e-5 for rmsnorm, 5e-5 for attention) and bfloat16 (one bf16 ulp
+   of the value plus atol 2e-2 for rmsnorm, 2e-4 for attention);
 4. SQL path: ``MorphingSession(backend="torch")`` over a ``--rows`` table
    (gender, len, 16-wide float32 emb from ``--seed``) with a linear-mode
    zoo, so the resolved trunk runs ``fused_embed``: CREATE TASK, a
@@ -38,7 +39,11 @@ Phases, each raising on failure (the script then exits non-zero):
    beside the least time the card could take (H100 SXM data
    sheet: 3.35 TB/s HBM, 67 TFLOP/s float32, 989 TFLOP/s bf16 dense
    tensor) and one PyTorch library call where one computes the same
-   function (``F.rms_norm``, ``F.scaled_dot_product_attention``).
+   function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for flash
+   at S <= window both the band-mask call and ``is_causal=True``); for the
+   LM kernels and their library calls also the card's own time a call
+   under ``torch.profiler`` (``device_ms``), which a call of a few µs
+   needs: CUDA events over back-to-back calls then read the host.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -73,6 +78,10 @@ LM_STEPS = 16                   # teacher-forced decode steps after each
 SERVE_PROMPT, SERVE_GEN = 512, 32
 LONG_S = 8192                   # the long prefill: past the 4096 window
 ROW_ATOL = 1e-5
+FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
+                "f32: FMA")
+DECODE_DESIGN = ("split-KV + combine; bf16: mma.sync over the GQA group, "
+                 "a 16-byte cp.async ring per warp; f32: FMA")
 SQL_AVG = ("SELECT gender, AVG(t(emb)) FROM reviews WHERE len > 20 "
            "GROUP BY gender")
 SQL_PREDICT = "PREDICT emb USING TASK t FROM reviews WHERE len > 190"
@@ -139,6 +148,7 @@ def compare_lm_kernels(dev):
     """rmsnorm / flash_attention / decode_attention against their plain
     versions: the LM path's full-width shapes plus ragged ones."""
     from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels.decode_attention import _split_plan
     from repro_torch.kernels.ref import (decode_attention_ref,
                                          flash_attention_ref, rmsnorm_ref)
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -173,6 +183,9 @@ def compare_lm_kernels(dev):
         atol = _attn_tol(dtype)
         for B, Hq, Hkv, S, D, causal, window in (
                 (1, 8, 2, 100, 80, True, 7), (2, 4, 4, 37, 128, False, 16),
+                (1, 4, 4, 1, 16, True, None), (2, 8, 2, 65, 80, True, 64),
+                (3, 8, 8, 63, 32, True, 1), (1, 16, 2, 129, 128, False, 7),
+                (2, 32, 8, 300, 80, True, None),
                 (32, 32, 8, SERVE_PROMPT, 80, True, 4096),
                 (4, 32, 8, 1024, 80, True, 4096),
                 (1, 32, 8, LONG_S, 80, True, 4096)):
@@ -192,12 +205,14 @@ def compare_lm_kernels(dev):
                 f"D={D} causal={causal} window={window}: max err "
                 f"{max(errs):.2e}")
         for B, Hq, Hkv, W, D in ((32, 32, 8, 4096, 80), (4, 32, 8, 4096, 80),
+                                 (1, 32, 8, 4096, 80), (64, 32, 8, 4096, 80),
                                  (3, 16, 2, 384, 16)):
             q = randn((B, Hq, D), dtype)
             kc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
             vc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
             errs = []
-            for length in (1, 600, W,
+            chunk = _split_plan(B, Hkv, W)[0]      # split edges at length W
+            for length in (1, 528, 600, chunk - 1, chunk, chunk + 1, W,
                            torch.randint(1, W + 1, (B,), generator=g).to(dev)):
                 if isinstance(length, int) and length > W:
                     continue
@@ -351,6 +366,12 @@ def quickstart():
 # -- phase 6: the LM path ---------------------------------------------------
 
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+# each wrapper's device kernels, by the names the profiler shows
+PROFILE_KERNELS = {
+    "rmsnorm": ("rmsnorm_kernel",),
+    "flash_attention": ("flash_mma_kernel", "flash_fma_kernel"),
+    "decode_attention": ("decode_mma_kernel", "decode_fma_kernel",
+                         "decode_combine_kernel")}
 
 
 def _lm_kernels():
@@ -417,12 +438,23 @@ def lm_teacher_forced(cfg, params, tokens, steps: int, label: str):
             "launches": counts, "kernel_s": k_s, "plain_s": p_s}
 
 
+def _kernel_us(prof) -> dict:
+    """Device µs by kernel name in a ``torch.profiler`` trace. Kernel
+    events only: a CPU op's self device time is its kernels' time again,
+    and counting both would count each kernel twice."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+    return by_name
+
+
 @torch.inference_mode()
 def profile_decode(engine, prompts, steps: int):
     """torch.profiler over ``steps`` decode steps of the serving engine
     (after a prefill of ``prompts``): device time by kernel, the LM
     kernels' share of it, and the device's busy share of the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     m, params = engine.model, engine.params
     chunk = torch.as_tensor(prompts, dtype=torch.long, device=engine.device)
@@ -437,17 +469,11 @@ def profile_decode(engine, prompts, steps: int):
             tok, state = engine.serve_step(params, state, tok)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.key_averages():
-        # kernel events only: a CPU op's self device time is its kernels'
-        # time again, and counting both would count each kernel twice
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+    by_name = _kernel_us(prof)
     total = sum(by_name.values())
-    ours = {n: sum(us for k, us in by_name.items() if prefix in k)
-            for n, prefix in (("rmsnorm", "rmsnorm_kernel"),
-                              ("flash_attention", "flash_kernel"),
-                              ("decode_attention", "decode_kernel"))}
+    ours = {n: sum(us for k, us in by_name.items()
+                   if any(name in k for name in names))
+            for n, names in PROFILE_KERNELS.items()}
     log(f"profile {steps} decode steps (B={chunk.shape[0]}): wall "
         f"{wall_us / steps / 1e3:.3f} ms a step, device busy "
         f"{total / steps / 1e3:.3f} ms a step ({total / wall_us:.3f} of the "
@@ -561,6 +587,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """The card's ms a call: the kernel time of ``reps`` calls under
+    ``torch.profiler``, over ``reps``. For a call of a few µs, CUDA events
+    over back-to-back calls read the host's enqueue time where that is
+    the longer; this reads only the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_kernel_us(prof).values()) / reps / 1e3
+
+
 def bound_ms(n: int, d: int, k: int):
     """Least time for the work: each input read once, the output written
     once (float32), against 2DK FMA flops + one tanh per output."""
@@ -599,9 +640,10 @@ def _bound(nbytes: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timed(name, kernel, plain, library, reps, bound, shape, atol):
+def _timed(name, kernel, plain, library, reps, bound, shape, atol,
+           library_causal=None):
     """Hold kernel and plain together on the inputs to be timed, then time
-    plain, kernel, kernel, plain (and the library call) in turns."""
+    plain, kernel, kernel, plain (and the library calls) in turns."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err, beyond, ok = _close(got, want, got.dtype, atol)
@@ -612,14 +654,25 @@ def _timed(name, kernel, plain, library, reps, bound, shape, atol):
     k2 = time_ms(kernel, reps)
     p2 = time_ms(plain, reps)
     lib = time_ms(library, reps) if library is not None else None
+    extra = {} if library_causal is None else {
+        "library_causal_ms": time_ms(library_causal, reps)}
+    # the card's own time of the kernel and of the library calls
+    dev_reps = min(reps, 50)
+    extra["device_ms"] = device_ms(kernel, dev_reps)
+    if library is not None:
+        extra["library_device_ms"] = device_ms(library, dev_reps)
+    if library_causal is not None:
+        extra["library_causal_device_ms"] = device_ms(library_causal,
+                                                      dev_reps)
     b, by = bound
     log(f"time {name} {shape}: max err {err:.2e} ({beyond:.2e} beyond one "
         f"ulp); kernel {k1:.5f}/{k2:.5f} ms, plain "
         f"{p1:.5f}/{p2:.5f} ms, library "
-        f"{'none' if lib is None else f'{lib:.5f} ms'}, bound {b:.6f} ms "
-        f"({by})")
+        f"{'none' if lib is None else f'{lib:.5f} ms'}"
+        + "".join(f", {key} {ms:.5f} ms" for key, ms in extra.items())
+        + f", bound {b:.6f} ms ({by})")
     return {"shape": shape, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-            "library_ms": lib, "bound_ms": b, "bound_by": by}
+            "library_ms": lib, **extra, "bound_ms": b, "bound_by": by}
 
 
 def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
@@ -652,6 +705,10 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
         pos = torch.arange(S, device=dev)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
         pairs = float(band.sum())
+        # at S <= window the band is the causal mask: SDPA's own causal path
+        causal = None if S > W else (
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True))
         res[f"flash_attention_{label}"] = _timed(
             "flash_attention",
             lambda: flash_attention(q, k, v, causal=True, window=W),
@@ -661,7 +718,7 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
             20 if S <= 1024 else 3,
             _bound(2.0 * B * S * hd * (2 * Hq + 2 * Hkv),
                    4.0 * B * Hq * hd * pairs, BF16_FLOPS_PER_S),
-            [B, Hq, Hkv, S, hd], ATTN_BF16_TOL)
+            [B, Hq, Hkv, S, hd], ATTN_BF16_TOL, library_causal=causal)
         del q, k, v, band
     length = prompt + gen_tokens // 2
     q = randn((slots, Hq, hd))
@@ -748,11 +805,11 @@ def main() -> int:
         lm_entry("rmsnorm", "src/repro/kernels/rmsnorm.py:32",
                  lt["rmsnorm_decode"], at_prefill=lt["rmsnorm_prefill"]),
         lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
-                 lt["flash_attention_prefill"],
+                 lt["flash_attention_prefill"], design=FLASH_DESIGN,
                  at_8192=lt["flash_attention_long"]),
         lm_entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:72",
-                 lt["decode_attention"]),
+                 lt["decode_attention"], design=DECODE_DESIGN),
     ]
     log(f"main path: model={mp['model']} stage_count={mp['stage_count']} "
         f"cold={mp['cold_s']:.4f} s warm={mp['warm_s']:.4f} s "

@@ -7,8 +7,9 @@ in ``.gitignore``), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-The hash covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one is reused. A library is built and loaded at most once per
+The hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited kernel or header rebuilds and an unchanged one is
+reused. A library is built and loaded at most once per
 process, under a lock, because the pipeline executor calls the kernels from
 several threads. Nothing here runs at import: the first launch (or
 :func:`build_all`) builds. There is no fallback: a missing ``nvcc`` or a
@@ -56,10 +57,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(name: str) -> Path:
@@ -103,6 +105,22 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def check_aligned(name: str, d: int, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless a kernel that copies 16-byte chunks can
+    read every tensor: D a multiple of 8, each data pointer and each
+    stride but the last (of a dim longer than 1) a multiple of 16 bytes."""
+    if d % 8:
+        raise ValueError(f"{name}: head dim {d} is not a multiple of 8")
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(
+                st * size % 16 for st, n in zip(t.stride()[:-1], t.shape)
+                if n > 1):
+            raise ValueError(f"{name}: a {t.dtype} operand with strides "
+                             f"{t.stride()} at offset {t.data_ptr() % 16} "
+                             "is not 16-byte aligned")
+
+
 class Kernel:
     """One C entry point ``symbol`` of ``csrc/<lib>.cu``. Its last
     parameter is the CUDA stream, and it returns ``cudaGetLastError()``.
@@ -114,20 +132,27 @@ class Kernel:
         self._fn = None
 
     def launch(self, wrapper: Callable, device: torch.device, *args,
-               what: str) -> None:
+               what: Callable[[], str]) -> None:
         """Run the kernel on ``device``'s current stream; raise on a CUDA
-        error, else add one to ``wrapper.launch_count``."""
+        error (``what()`` names the call), else add one to
+        ``wrapper.launch_count``. A launch is on the hot path of a decode
+        step, so the device is switched only when it is not current."""
         if self._fn is None:
             fn = getattr(load(self.lib), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
+        index = device.index
+        current = torch._C._cuda_getDevice()
+        if index is None or index == current:
+            err = self._fn(*args, torch._C._cuda_getCurrentRawStream(current))
+        else:
+            with torch.cuda.device(index):
+                err = self._fn(*args,
+                               torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
-                               f"CUDA error {err} at {what}")
+                               f"CUDA error {err} at {what()}")
         with _COUNT_LOCK:
             wrapper.launch_count += 1
 

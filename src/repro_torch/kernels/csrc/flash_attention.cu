@@ -13,82 +13,77 @@
 // strided views and no transpose is copied. Query and key positions both
 // start at 0. Any S: the ragged edge is masked, not padded. D <= 128.
 //
-// What bounds it on an H100: operations. Per (q, k) pair it does 4D flops
-// against bytes that are read once per tile; a long prefill is far above
-// the card's flops per byte. Tiles wholly outside the causal / window band
-// are skipped, as the TPU kernel skips them, so a window of W keeps the
-// work at ~S*W pairs instead of S^2/2.
+// What bounds it on an H100: at the serving prefill (B 32, S 512, D 80)
+// the bytes (q, k, v read once, o written once: 0.063 ms at 3.35 TB/s)
+// just above the operations of the in-band (q, k) pairs on the bf16 tensor
+// cores (0.044 ms at 989 TFLOP/s); a long prefill (S 8192, window 4096) is
+// bound by the operations. On f32 FMA (67 TFLOP/s, the earlier design) it
+// was compute-starved either way. Tiles wholly outside the causal / window
+// band are skipped, as the TPU kernel skips them, so a window of W keeps
+// the work at ~S*W pairs instead of S^2/2.
 //
-// Design (simple and right first): one block of 256 threads owns one
-// (batch, q head, 64-row q tile) and walks the kv tiles its rows can reach
-// in order, the loop taking the place of the TPU grid's sequential kv axis.
-// The q tile (pre-scaled), one K tile, one V tile and the tile's
-// probabilities sit in shared memory as f32, rows padded to D + 1 words so
-// neighbouring rows fall in other banks. Thread (ty, tx) of a 16 x 16 grid
-// owns 4 q rows: it computes their scores against keys tx + 16j (j < 4),
-// keeps the running max / denominator of its rows (the 16 threads of a row
-// agree through shuffles) and accumulates 4 x ceil(D/16) outputs, columns
-// tx + 16j, with f32 FMA. head_dim 80 is tiled as 5 x 16 in shared memory;
-// nothing is padded in device memory. No tensor cores yet, which keeps
-// float32 inputs in full float32 (TF32 would break the f32 parity); a
-// wgmma / TMA version is later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <mutex>
+// bfloat16 (flash_mma_kernel), FlashAttention-2 on mma.sync: one block of
+// 4 warps per (batch, q head, 64-row q tile), each warp owning 16 q rows;
+// the grid walks q tiles longest first. The q tile is copied once with
+// cp.async and held in registers as ldmatrix A fragments, unscaled. K and
+// V tiles of 64 positions are staged as bf16 by 16-byte cp.async copies
+// into two stages, the next tile in flight while this one is computed;
+// rows past the end are zero-filled, not read. Shared rows are D rounded up
+// to 16 (the pad zeroed once) plus 8 elements, so the 8 rows an ldmatrix
+// reads fall in 8 distinct bank groups. S = Q K^T runs as m16n8k16 bf16
+// MMAs with f32 accumulators; the scale D^-0.5 * log2(e) is applied to the
+// f32 scores (scaling q in bf16 would round it once more than the plain
+// version does), and only tiles that cross the diagonal, the window edge or
+// the ragged end are masked. The online softmax stays in registers (exp2,
+// row max over the 4 threads of a quad by shuffles, row sums reduced once
+// at the end). The score accumulators are already the A-fragment layout
+// of P V; P goes in as bf16 hi + lo (P - hi) in two MMAs, since P rounded
+// to bf16 alone is off by up to 2^-9 relative, which breaks the one-ulp
+// parity where the weighted values nearly cancel. The epilogue divides by
+// the row sum and stores 16-byte chunks through the warp's own q rows in
+// shared memory.
+//
+// float32 (flash_fma_kernel) keeps the earlier FMA design: TF32 tensor
+// cores would break the 5e-5 f32 parity, and f32 serves only the
+// correctness checks. One block of 256 threads per (batch, q head, 64-row
+// q tile); q (pre-scaled), K, V and the tile's probabilities in shared
+// memory as f32, each thread 4 q rows x ceil(D/16) columns.
+//
+// Open: wgmma with TMA and warp specialisation (producer warp, consumer
+// warpgroups). For D = 80 TMA's 128-byte swizzle needs the row split into
+// 64 + 16 boxes or padded to 96 / 128. At S = 512 the kernel is bounded
+// by bytes, so mma.sync can pass the band-mask library call, which it
+// does; cuDNN's causal path is still about twice as fast (PERF.md).
+#include "attention_common.cuh"
 
 namespace {
 
+using attn::NEG_INF;
+using bf16 = __nv_bfloat16;
+
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-
-// cudaFuncSetAttribute is a driver call, too dear to make at every launch.
-// Each kernel instance raises its dynamic shared memory limit on a device
-// only when a launch needs more than it set there before. The limit only
-// grows, under a lock, so no launch on another thread sees it lowered.
-struct SmemLimit {
-  static constexpr int kDevices = 64;
-  std::mutex mu;
-  int bytes[kDevices] = {};
-  cudaError_t allow(const void* kernel, int need) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    std::lock_guard<std::mutex> lock(mu);
-    if (dev < kDevices && bytes[dev] >= need) return cudaSuccess;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
-    if (err == cudaSuccess && dev < kDevices) bytes[dev] = need;
-    return err;
-  }
-};
+constexpr int FMA_THREADS = 256;
+constexpr int MMA_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// -- float32: FMA on the CUDA cores -----------------------------------------
 
-__host__ __device__ constexpr int smem_floats(int d) {
+__host__ __device__ constexpr int fma_smem_floats(int d) {
   return BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1);
 }
 
 // JD = ceil(D / 16): output column groups per thread.
-template <typename T, int JD>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, Strides st,
-             int hq, int hkv, int sq, int sk, int d, int causal, int window,
-             float scale) {
+template <int JD>
+__global__ void __launch_bounds__(FMA_THREADS)
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides st, int hq, int hkv, int sq, int sk, int d,
+                 int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;                  // [BQ][d + 1]
@@ -101,15 +96,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + kvh * st.kh;
-  const T* vp = v + b * st.vb + kvh * st.vh;
-  T* op = o + b * st.ob + h * st.oh;
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + kvh * st.kh;
+  const float* vp = v + b * st.vb + kvh * st.vh;
+  float* op = o + b * st.ob + h * st.oh;
 
-  for (int e = tid; e < BQ * d; e += THREADS) {
+  for (int e = tid; e < BQ * d; e += FMA_THREADS) {
     const int r = e / d, c = e % d;
-    qs[r * ld + c] = q0 + r < sq ? to_f32(qp[(q0 + r) * st.qs + c]) * scale
-                                 : 0.f;
+    qs[r * ld + c] = q0 + r < sq ? qp[(q0 + r) * st.qs + c] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][JD];
@@ -127,11 +121,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_lo / BK) * BK; k0 <= k_hi; k0 += BK) {
     __syncthreads();  // previous tile's ps / vs fully read (and qs written)
-    for (int e = tid; e < BK * d; e += THREADS) {
+    for (int e = tid; e < BK * d; e += FMA_THREADS) {
       const int r = e / d, c = e % d;
       const bool in = k0 + r < sk;
-      ks[r * ld + c] = in ? to_f32(kp[(k0 + r) * st.ks + c]) : 0.f;
-      vs[r * d + c] = in ? to_f32(vp[(k0 + r) * st.vs + c]) : 0.f;
+      ks[r * ld + c] = in ? kp[(k0 + r) * st.ks + c] : 0.f;
+      vs[r * d + c] = in ? vp[(k0 + r) * st.vs + c] : 0.f;
     }
     __syncthreads();
 
@@ -212,52 +206,307 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int col = tx + 16 * j;
-      if (col < d) store(op + qpos * st.os + col, acc[i][j] / den);
+      if (col < d) op[qpos * st.os + col] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int JD>
-int launch_jd(const void* q, const void* k, const void* v, void* o,
-              const Strides& st, int b, int hq, int hkv, int sq, int sk,
-              int d, int causal, int window, float scale,
-              cudaStream_t stream) {
-  const int smem = smem_floats(d) * static_cast<int>(sizeof(float));
-  static SmemLimit limit;
+template <int JD>
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               const Strides& st, int b, int hq, int hkv, int sq, int sk,
+               int d, int causal, int window, float scale,
+               cudaStream_t stream) {
+  const int smem = fma_smem_floats(d) * static_cast<int>(sizeof(float));
+  static attn::SmemLimit limit;
   const cudaError_t err =
-      limit.allow(reinterpret_cast<const void*>(flash_kernel<T, JD>), smem);
+      limit.allow(reinterpret_cast<const void*>(flash_fma_kernel<JD>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  flash_kernel<T, JD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st, hq, hkv, sq, sk, d,
-      causal, window, scale);
+  flash_fma_kernel<JD><<<grid, FMA_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, hq, hkv, sq,
+      sk, d, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// -- bfloat16: mma.sync on the tensor cores ---------------------------------
+
+__host__ __device__ constexpr int mma_ld(int ks) { return 16 * ks + 8; }
+
+__host__ __device__ constexpr int mma_smem_bytes(int ks) {
+  // q tile, then K and V in two stages each, rows of mma_ld(ks) bf16
+  return (BQ + 4 * BK) * mma_ld(ks) * 2;
+}
+
+// Copy rows [row0, row0 + 64) of a [S, d] operand (row stride `stride`)
+// into a shared tile of row stride LD; rows at or past `limit` are
+// zero-filled. d is a multiple of 8: d / 8 chunks of 16 bytes a row.
+template <int LD>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          long long stride, int row0,
+                                          int limit, int chunks, int tid) {
+  for (int e = tid; e < 64 * chunks; e += MMA_THREADS) {
+    const int r = e / chunks, c = e % chunks;
+    const bool in = row0 + r < limit;
+    attn::cp_async16(dst + r * LD + c * 8,
+                     src + (in ? (row0 + r) * stride : 0) + c * 8, in);
+  }
+}
+
+// KS = ceil(D / 16): k16 steps of Q K^T; 2 * KS n8 column tiles of O.
+template <int KS>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 Strides st, int hq, int hkv, int sq, int sk, int d,
+                 int causal, int window, float scale_log2) {
+  constexpr int DP = 16 * KS;
+  constexpr int LD = mma_ld(KS);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
+  bf16* ks = qs + BQ * LD;                        // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                    // [2][BK][LD]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // longest tiles first
+  const int kvh = h / (hq / hkv);
+  const bf16* qp = q + b * st.qb + h * st.qh;
+  const bf16* kp = k + b * st.kb + kvh * st.kh;
+  const bf16* vp = v + b * st.vb + kvh * st.vh;
+  bf16* op = o + b * st.ob + h * st.oh;
+  const int chunks = d / 8;
+
+  // columns [d, DP) of every tile: zero, never written by the copies
+  if (d < DP)
+    for (int r = tid; r < BQ + 4 * BK; r += MMA_THREADS)
+      *reinterpret_cast<uint4*>(qs + r * LD + d) = make_uint4(0, 0, 0, 0);
+
+  const int q_last = min(q0 + BQ, sq) - 1;
+  const int k_hi = causal ? min(q_last, sk - 1) : sk - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t0 = k_lo / BK;
+  const int n_tiles = k_hi >= t0 * BK ? k_hi / BK - t0 + 1 : 0;
+
+  copy_tile<LD>(qs, qp, st.qs, q0, sq, chunks, tid);
+  if (n_tiles > 0) {
+    copy_tile<LD>(ks, kp, st.ks, t0 * BK, sk, chunks, tid);
+    copy_tile<LD>(vs, vp, st.vs, t0 * BK, sk, chunks, tid);
+  }
+  attn::cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float acc[2 * KS][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // this thread's rows: g and g + 8 of the warp's 16
+  const int row_a = q0 + warp * 16 + lane / 4;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (t0 + i) * BK;
+    if (i + 1 < n_tiles) {
+      const int nxt = (i + 1) & 1;
+      copy_tile<LD>(ks + nxt * BK * LD, kp, st.ks, k0 + BK, sk, chunks, tid);
+      copy_tile<LD>(vs + nxt * BK * LD, vp, st.vs, k0 + BK, sk, chunks, tid);
+    }
+    attn::cp_async_commit();
+    attn::cp_async_wait<1>();     // tile i (and q) landed
+    __syncthreads();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        attn::ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD
+                                      + kk * 16 + (lane / 16) * 8);
+    }
+    const bf16* kt = ks + (i & 1) * BK * LD;
+    const bf16* vt = vs + (i & 1) * BK * LD;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t kb[4];
+        attn::ldmatrix_x4(kb, kt + (jp * 16 + lane % 8 + (lane / 16) * 8) * LD
+                                  + kk * 16 + ((lane / 8) % 2) * 8);
+        attn::mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
+        attn::mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    const bool need_mask = k0 + BK > sk || (causal && k0 + BK - 1 > q0)
+                           || (window > 0 && k0 <= q_last - window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = s[j][r] * scale_log2;
+        if (need_mask) {
+          const int qpos = row_a + (r / 2) * 8;
+          const int kpos = k0 + j * 8 + 2 * (lane % 4) + (r & 1);
+          bool ok = kpos < sk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) x = NEG_INF;
+        }
+        s[j][r] = x;
+        mx[r / 2] = fmaxf(mx[r / 2], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      corr[hr] = exp2f(m[hr] - m_new);
+      m[hr] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = exp2f(s[j][r] - m[r / 2]);
+        s[j][r] = p;
+        sum[r / 2] += p;
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * corr[hr] + sum[hr];
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V, P as bf16 hi + lo; keys 16 kk .. 16 kk + 15 per step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      attn::split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      attn::split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      attn::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      attn::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        uint32_t vb[4];
+        attn::ldmatrix_x4_trans(
+            vb, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD
+                    + dp * 16 + (lane / 16) * 8);
+        attn::mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
+        attn::mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
+        attn::mma_bf16(acc[2 * dp + 1], ph, vb[2], vb[3]);
+        attn::mma_bf16(acc[2 * dp + 1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // stage i & 1 fully read before tile i + 2 lands
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: o / l as bf16 into the warp's own q rows, then 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float t = l[hr];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    inv[hr] = 1.f / fmaxf(t, 1e-30f);
+  }
+  bf16* ow = qs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) {
+    const int col = n * 8 + 2 * (lane % 4);
+    if (n * 8 < d) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<uint32_t*>(ow + (lane / 4 + hr * 8) * LD + col) =
+            attn::pack_bf16(acc[n][2 * hr] * inv[hr],
+                            acc[n][2 * hr + 1] * inv[hr]);
+    }
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * chunks; e += 32) {
+    const int r = e / chunks, c = e % chunks;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos < sq)
+      *reinterpret_cast<uint4*>(op + qpos * st.os + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + r * LD + c * 8);
+  }
+}
+
+template <int KS>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               const Strides& st, int b, int hq, int hkv, int sq, int sk,
+               int d, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes(KS);
+  static attn::SmemLimit limit;
+  const cudaError_t err =
+      limit.allow(reinterpret_cast<const void*>(flash_mma_kernel<KS>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
+  flash_mma_kernel<KS><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), st, hq, hkv, sq,
+      sk, d, causal, window, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define FLASH_ARGS \
+  q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s
+
 int launch(const void* q, const void* k, const void* v, void* o,
            const Strides& st, int b, int hq, int hkv, int sq, int sk, int d,
-           int causal, int window, float scale, cudaStream_t s) {
-  switch ((d + 15) / 16) {
-    case 1: return launch_jd<T, 1>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 2: return launch_jd<T, 2>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 3: return launch_jd<T, 3>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 4: return launch_jd<T, 4>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 5: return launch_jd<T, 5>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 6: return launch_jd<T, 6>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 7: return launch_jd<T, 7>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
-    case 8: return launch_jd<T, 8>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s);
+           int causal, int window, float scale, int bf16_in, cudaStream_t s) {
+  const int groups = (d + 15) / 16;
+  if (bf16_in) {
+    if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
+    switch (groups) {
+      case 1: return launch_mma<1>(FLASH_ARGS);
+      case 2: return launch_mma<2>(FLASH_ARGS);
+      case 3: return launch_mma<3>(FLASH_ARGS);
+      case 4: return launch_mma<4>(FLASH_ARGS);
+      case 5: return launch_mma<5>(FLASH_ARGS);
+      case 6: return launch_mma<6>(FLASH_ARGS);
+      case 7: return launch_mma<7>(FLASH_ARGS);
+      case 8: return launch_mma<8>(FLASH_ARGS);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (groups) {
+    case 1: return launch_fma<1>(FLASH_ARGS);
+    case 2: return launch_fma<2>(FLASH_ARGS);
+    case 3: return launch_fma<3>(FLASH_ARGS);
+    case 4: return launch_fma<4>(FLASH_ARGS);
+    case 5: return launch_fma<5>(FLASH_ARGS);
+    case 6: return launch_fma<6>(FLASH_ARGS);
+    case 7: return launch_fma<7>(FLASH_ARGS);
+    case 8: return launch_fma<8>(FLASH_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#undef FLASH_ARGS
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) for q, k, v, o in
 // that order. window <= 0: no window. scale: the score scale (D^-0.5,
-// as the caller computes it). bf16: 0 for float32 inputs and
-// output, 1 for bfloat16. Returns cudaGetLastError().
+// as the caller computes it). bf16: 0 for float32 inputs and output, 1 for
+// bfloat16 (then D % 8 == 0 and every pointer and stride 16-byte aligned,
+// which the wrapper checks). Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const long long* strides, int b,
                                int hq, int hkv, int sq, int sk, int d,
@@ -266,10 +515,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, st, b, hq, hkv, sq, sk, d,
-                                 causal, window, scale, s);
-  return launch<float>(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal,
-                       window, scale, s);
+  return launch(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale,
+                bf16, static_cast<cudaStream_t>(stream));
 }

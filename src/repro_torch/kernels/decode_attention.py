@@ -1,12 +1,19 @@
-"""Flash-decode: one query token per row against a long KV cache, in one
-CUDA kernel.
+"""Flash-decode: one query token per row against a long KV cache, split
+over blocks and combined, in hand-written CUDA.
 
 Port of ``src/repro/kernels/decode_attention.py``. The reference is a
 Pallas TPU kernel with one program per batch row walking kv blocks in
 order, and needs S to divide the block size; here the kernel is
 hand-written CUDA C++ for Hopper (``csrc/decode_attention.cu``, built by
-:mod:`repro_torch.kernels._build`): one block per (row, kv head), so a
-GQA group shares each K/V tile, looping only up to ``length``.
+:mod:`repro_torch.kernels._build`): the cache below ``length`` is cut into
+chunks (:func:`_split_plan`), one block per (chunk, kv head, row) streams
+its rows with 16-byte copies so a GQA group shares each row, and a combine
+pass merges the chunks' partial softmax sums into the output. Both
+launches are one wrapper call, counted once.
+
+The kernel copies 16-byte chunks, so it needs D % 8 == 0 and cache
+pointers and (batch, head, position) strides 16-byte aligned; the model's
+caches always are, and anything else raises ``ValueError``.
 
 The caches are read through their strides (last dim contiguous): the
 model hands in its ``[B, W, Hkv, D]`` layer cache as a ``transpose(1, 2)``
@@ -22,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import numbers
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -33,10 +40,28 @@ MAX_HEAD_DIM = 256
 MAX_GROUP_WIDTH = 2048          # (Hq / Hkv) * D accumulators per block
 _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+SPLIT_QUANTUM = 64              # positions: a chunk is a multiple of this
+BLOCKS_PER_SM = 2               # the grid the plan aims for, per SM
+H100_SMS = 132
 _KERNEL = _build.Kernel("decode_attention", "decode_attention",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int]
                         + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int])
+                        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
+
+
+def _split_plan(batch: int, kv_heads: int, n: int,
+                sms: int = H100_SMS) -> Tuple[int, int]:
+    """(chunk, splits) for a cache read up to ``n`` positions: split ``s``
+    covers ``[s * chunk, min((s + 1) * chunk, n))``. A (row, kv head) pair
+    is cut into about ``BLOCKS_PER_SM * sms / (batch * kv_heads)`` splits,
+    at least one, in chunks that are a multiple of ``SPLIT_QUANTUM``: one
+    long row still fills the card, and a batch that fills it alone is not
+    split, so it needs no combine pass."""
+    n = max(int(n), 1)
+    want = max(1, BLOCKS_PER_SM * sms // max(batch * kv_heads, 1))
+    chunk = -(-n // want)
+    chunk = max(SPLIT_QUANTUM, -(-chunk // SPLIT_QUANTUM) * SPLIT_QUANTUM)
+    return chunk, -(-n // chunk)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,6 +104,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: D {D} and group {Hq // Hkv} "
                          f"exceed the kernel's D <= {MAX_HEAD_DIM}, "
                          f"G * D <= {MAX_GROUP_WIDTH}")
+    _build.check_aligned("decode_attention", D, q, k, v)
     if B > _GRID_MAX or Hkv > _GRID_MAX or k.shape[2] > 2 ** 31 - 128:
         raise ValueError(f"decode_attention: cache {tuple(k.shape)} exceeds "
                          "the kernel's grid")
@@ -96,22 +122,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     o = torch.empty_like(q)
-    if q.numel() == 0:
+    if not B * Hq * D:
         return o
     lengths, length_all = None, 0
     if isinstance(length, torch.Tensor):
         lengths = length.to(torch.int32).expand(B).contiguous()
+        reach = S           # a split past its row's length writes l = 0
     else:
-        length_all = int(length)
+        length_all = reach = max(0, min(int(length), S))
+    index = q.device.index
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index
+    ).multi_processor_count
+    chunk, splits = _split_plan(B, Hkv, reach, sms)
     strides = (ctypes.c_longlong * 6)(
         *(t.stride(i) for t in (k_cache, v_cache) for i in (0, 1, 2)))
+    part = (torch.empty((B, Hq, splits, D + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     _KERNEL.launch(decode_attention, q.device, q.data_ptr(),
                    k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
+                   None if part is None else part.data_ptr(),
                    None if lengths is None else lengths.data_ptr(),
-                   int(max(0, min(length_all, S))), strides, B, Hq, Hkv, S, D,
+                   length_all, strides, B, Hq, Hkv, S, D, chunk, splits,
                    float(D ** -0.5), int(q.dtype == torch.bfloat16),
-                   what=f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} "
-                        f"{q.dtype}")
+                   what=lambda: f"q {tuple(q.shape)}, cache "
+                                f"{tuple(k_cache.shape)} {q.dtype}")
     return o
 
 

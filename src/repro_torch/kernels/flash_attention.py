@@ -6,6 +6,12 @@ needs S to divide both block sizes; here the kernel is hand-written CUDA
 C++ for Hopper (``csrc/flash_attention.cu``, built by
 :mod:`repro_torch.kernels._build`): one block per (batch, q head, 64-row q
 tile) loops over the kv tiles its rows can reach, and any S is taken.
+bfloat16 runs on the tensor cores (``mma.sync`` with ``cp.async``-staged
+K/V tiles); float32 runs on f32 FMA, which keeps full f32 precision.
+
+The bfloat16 instance copies 16-byte chunks, so it needs D % 8 == 0 and
+every pointer and (batch, head, position) stride 16-byte aligned; the
+model's layouts always are, and anything else raises ``ValueError``.
 
 The public signature keeps the reference's ``[B, H, S, D]`` layout. The
 kernel reads every operand through its strides (last dim contiguous), so
@@ -67,6 +73,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > _GRID_MAX or Hq > _GRID_MAX or max(q.shape[2], Sk) > 2 ** 31 - 128:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} exceeds "
                          "the kernel's grid")
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned("flash_attention", D, q, k, v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,13 +91,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *o.stride()[:3])
     _KERNEL.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), strides, B, Hq, Hkv, Sq, Sk, D,
                    int(bool(causal)), int(window or 0), float(D ** -0.5),
                    int(q.dtype == torch.bfloat16),
-                   what=f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
+                   what=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)} "
+                                f"{q.dtype}")
     return o
 
 

@@ -62,7 +62,7 @@ def fused_embed(x: torch.Tensor, w: torch.Tensor, *, mean: float = 0.0,
     _KERNELS[x.dtype].launch(
         fused_embed, x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), n,
         d, k, float(mean), float(scale),
-        what=f"x {tuple(x.shape)}, w {tuple(w.shape)}")
+        what=lambda: f"x {tuple(x.shape)}, w {tuple(w.shape)}")
     return out
 
 

@@ -59,7 +59,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
                    y.data_ptr(), n, d, float(eps),
                    int(x.dtype == torch.bfloat16),
                    int(w.dtype == torch.bfloat16),
-                   what=f"x {tuple(x.shape)} {x.dtype}")
+                   what=lambda: f"x {tuple(x.shape)} {x.dtype}")
     return y
 
 

@@ -246,3 +246,116 @@ def test_decode_attention_pallas_interpret_matches_port():
 def test_wrappers_reject_what_the_kernels_do_not_take(call, exc):
     with pytest.raises(exc):
         call()
+
+
+# -- decode_attention's split plan and combine rule --------------------------
+# The CUDA kernel cuts the cache below ``length`` into the chunks of
+# ``_split_plan`` and merges their partial softmax sums. The same rule,
+# written here in torch over the plan's splits, must equal the plain version
+# and the Pallas kernel: it is what the kernel computes, in f32 (2e-5).
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (SPLIT_QUANTUM,  # noqa: E402
+                                                  _split_plan)
+
+PLAN_SHAPES = [(32, 8, 528), (32, 8, 1), (32, 8, 4096), (1, 8, 4096),
+               (1, 8, 64), (1, 8, 65), (64, 8, 4096), (4, 8, 4096),
+               (3, 2, 384), (2, 2, 512), (1, 1, 1), (1, 1, 100000)]
+
+
+@pytest.mark.parametrize("B,Hkv,n", PLAN_SHAPES)
+def test_split_plan_covers_each_position_once(B, Hkv, n):
+    chunk, splits = _split_plan(B, Hkv, n)
+    assert chunk % SPLIT_QUANTUM == 0 and splits >= 1
+    covered = np.zeros(n, np.int64)
+    for s in range(splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, n)
+        assert lo < hi, "a split of the plan covers nothing"
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    # the grid fills the card's 132 SMs, or has a block per quantum; the
+    # combine pass takes at most 1024 splits
+    blocks = B * Hkv * splits
+    assert blocks >= min(132, B * Hkv * -(-n // SPLIT_QUANTUM))
+    assert splits <= 1024
+
+
+def _split_combine(q, kc, vc, lengths, chunk, splits):
+    """The kernel's rule in torch: per split, (acc, m, l) over its
+    positions below the row's length; then o = sum w acc / sum w l with
+    w = exp(m - max m)."""
+    B, Hq, D = q.shape
+    Hkv, S = kc.shape[1], kc.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, D).float() * D ** -0.5
+    pos = torch.arange(S)
+    accs, ms, ls = [], [], []
+    for s in range(splits):
+        inside = ((pos >= s * chunk) & (pos < (s + 1) * chunk)
+                  & (pos[None, :] < lengths[:, None]))           # [B, S]
+        sc = torch.einsum("bkgd,bksd->bkgs", qf, kc.float())
+        sc = torch.where(inside[:, None, None, :], sc, -1e30)
+        m = sc.max(dim=-1).values                                 # [B,k,g]
+        p = torch.exp(sc - m[..., None]) * inside[:, None, None, :]
+        accs.append(torch.einsum("bkgs,bksd->bkgd", p, vc.float()))
+        ms.append(m)
+        ls.append(p.sum(-1))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.max(dim=0).values)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    den = (w * torch.stack(ls)).sum(0).clamp_min(1e-30)
+    return (acc / den[..., None]).reshape(B, Hq, D)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 8, 2, 512, 64),
+                                          (1, 32, 8, 4096, 80),
+                                          (3, 16, 2, 384, 16)])
+@pytest.mark.parametrize("where", ["1", "chunk-1", "chunk", "chunk+1",
+                                   "full", "rows"])
+def test_split_combine_rule_matches_plain(B, Hq, Hkv, S, D, where):
+    q = torch.from_numpy(_normal((B, Hq, D), 11))
+    kc = torch.from_numpy(_normal((B, Hkv, S, D), 12))
+    vc = torch.from_numpy(_normal((B, Hkv, S, D), 13))
+    chunk = _split_plan(B, Hkv, S)[0]
+    if where == "rows":                 # one length per row: 1 and S mixed
+        lengths = torch.tensor([(1, S, chunk + 1)[b % 3] for b in range(B)])
+        plan = _split_plan(B, Hkv, S)
+        length = lengths
+    else:
+        n = {"1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+             "chunk+1": chunk + 1, "full": S}[where]
+        lengths = torch.full((B,), n)
+        plan = _split_plan(B, Hkv, n)
+        length = n
+    got = _split_combine(q, kc, vc, lengths, *plan)
+    want = decode_attention_ref(q, kc, vc, length)
+    assert _err(got.numpy(), want.numpy()) < F32_TOL
+
+
+@pytest.mark.parametrize("length", [1, 64, 65, 300, 512])
+def test_split_combine_rule_matches_pallas(length):
+    q = _normal((2, 8, 64), 14)
+    kc, vc = _normal((2, 2, 512, 64), 15), _normal((2, 2, 512, 64), 16)
+    want = ref_ops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                    jnp.asarray(vc), length, block_k=128,
+                                    interpret=True)
+    got = _split_combine(torch.from_numpy(q), torch.from_numpy(kc),
+                         torch.from_numpy(vc), torch.full((2,), length),
+                         *_split_plan(2, 2, length))
+    assert _err(got.numpy(), want) < F32_TOL
+
+
+def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    first = _build._library_path("k")
+    assert _build._library_path("k") == first          # unchanged: reused
+    header.write_text("// v2\n")
+    edited = _build._library_path("k")
+    assert edited != first                             # edited: rebuilt
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build._library_path("k") not in (first, edited)
+    assert first.parent == tmp_path / "build"

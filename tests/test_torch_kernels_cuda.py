@@ -185,6 +185,115 @@ def test_cuda_decode_attention_matches_plain(cuda_device, dtype, B, Hq, Hkv,
     _assert_close(got, want, dtype, ATTN_TOL[dtype])
 
 
+# -- the tile and split edges of the redesigned attention kernels -----------
+# flash: 64-row q tiles and 64-key kv tiles, D padded to 16 in shared memory
+# (bf16 on mma.sync) or cut in 16-column groups (f32 on FMA); decode: the
+# chunks of _split_plan and the combine pass.
+
+from repro_torch.kernels.decode_attention import _split_plan  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_cuda_flash_attention_tile_edges(cuda_device, dtype, S, D):
+    G = (1, 4, 8)[(S + D) % 3]
+    q = _randn((2, 2 * G, S, D), S, cuda_device, dtype)
+    k = _randn((2, 2, S, D), D, cuda_device, dtype)
+    v = _randn((2, 2, S, D), S + D, cuda_device, dtype)
+    for causal in (True, False):
+        _flash_check(q, k, v, causal, None, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [63, 64, 65, 129, 300])
+@pytest.mark.parametrize("window", [1, 7, 64])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_flash_attention_window_edges(cuda_device, dtype, S, window,
+                                           G):
+    q = _randn((1, 2 * G, S, 80), S + window, cuda_device, dtype)
+    k = _randn((1, 2, S, 80), G, cuda_device, dtype)
+    v = _randn((1, 2, S, 80), S, cuda_device, dtype)
+    _flash_check(q, k, v, True, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,W,D", [(32, 32, 8, 4096, 80),
+                                          (1, 32, 8, 4096, 80),
+                                          (64, 32, 8, 4096, 80),
+                                          (3, 16, 2, 384, 16)])
+@pytest.mark.parametrize("where", ["1", "chunk-1", "chunk", "chunk+1", "W",
+                                   "rows"])
+def test_cuda_decode_attention_split_edges(cuda_device, dtype, B, Hq, Hkv, W,
+                                           D, where):
+    q = _randn((B, Hq, D), B + W, cuda_device, dtype)
+    kc = _randn((B, W, Hkv, D), 10, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, W, Hkv, D), 11, cuda_device, dtype).transpose(1, 2)
+    chunk = _split_plan(B, Hkv, W)[0]
+    if where == "rows":             # per-row lengths: 1, W and a boundary
+        length = torch.tensor([(1, W, chunk + 1, chunk)[b % 4]
+                               for b in range(B)], device=cuda_device)
+    else:
+        length = {"1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+                  "chunk+1": chunk + 1, "W": W}[where]
+    before = decode_attention.launch_count
+    got = decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert decode_attention.launch_count == before + 1
+    _assert_close(got, decode_attention_ref(q, kc, vc, length), dtype,
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [136, 160, 192, 232, 256])
+@pytest.mark.parametrize("B,length", [(2, 1), (2, 300), (1, 1024),
+                                      (3, "rows")])
+def test_cuda_decode_attention_wide_heads(cuda_device, dtype, D, B, length):
+    # head dims past 128: the bf16 kernel pads D to ceil(D / 16) k16 steps
+    q = _randn((B, 8, D), D, cuda_device, dtype)
+    kc = _randn((B, 1024, 2, D), D + 1, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, 1024, 2, D), D + 2, cuda_device, dtype).transpose(1, 2)
+    if length == "rows":
+        length = torch.tensor([1, 1024, 65][:B], device=cuda_device)
+    got = decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    _assert_close(got, decode_attention_ref(q, kc, vc, length), dtype,
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_reject_unaligned_inputs(cuda_device):
+    bf = torch.bfloat16
+
+    def z(*shape, dtype=bf):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    q, kv = z(1, 4, 16, 80), z(1, 2, 16, 80)
+    with pytest.raises(ValueError):          # bf16 D not a multiple of 8
+        flash_attention(z(1, 4, 16, 20), z(1, 2, 16, 20), z(1, 2, 16, 20))
+    with pytest.raises(ValueError):          # q pointer 2 bytes off
+        flash_attention(z(1, 4, 16, 81)[..., 1:], kv, kv)
+    with pytest.raises(ValueError):          # position stride 84 elements
+        flash_attention(q, z(1, 2, 16, 84)[..., :80], kv)
+    flash_attention(z(1, 4, 16, 20, dtype=torch.float32),   # f32: FMA, any D
+                    z(1, 2, 16, 20, dtype=torch.float32),
+                    z(1, 2, 16, 20, dtype=torch.float32))
+    qd = z(2, 8, 80)
+    cache = z(2, 2, 64, 80)
+    with pytest.raises(ValueError):          # D not a multiple of 8
+        decode_attention(z(2, 8, 12), z(2, 2, 64, 12), z(2, 2, 64, 12), 4)
+    with pytest.raises(ValueError):          # cache pointer 2 bytes off
+        decode_attention(qd, z(2, 2, 64, 81)[..., 1:], cache, 4)
+    with pytest.raises(ValueError):          # f32 position stride 81
+        decode_attention(qd.float(), cache.float(),
+                         z(2, 2, 64, 81, dtype=torch.float32)[..., :80], 4)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 4, 16, 144), device=cuda_device)
