@@ -35,15 +35,18 @@ Phases, each raising on failure (the script then exits non-zero):
    of both are held to 24 flash_attention per prefill, 24 (gen - 1)
    decode_attention and 49 gen rmsnorm per slot chunk;
 7. time every kernel and its plain version with CUDA events at the main
-   paths' shapes, after holding the two together on those very inputs,
+   paths' shapes (``fused_embed`` at 256, 2^20 and 1 rows; ``rmsnorm``
+   also at 4096 x 16384, its multi-warp register instance), after holding
+   the two together on those very inputs,
    beside the least time the card could take (H100 SXM data
    sheet: 3.35 TB/s HBM, 67 TFLOP/s float32, 989 TFLOP/s bf16 dense
    tensor) and one PyTorch library call where one computes the same
    function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for flash
    at S <= window both the band-mask call and ``is_causal=True``); for the
-   LM kernels and their library calls also the card's own time a call
-   under ``torch.profiler`` (``device_ms``), which a call of a few µs
-   needs: CUDA events over back-to-back calls then read the host.
+   kernels and the library calls also the card's own time a call under
+   ``torch.profiler`` (``device_ms``) and its share of the bound, which a
+   call of a few µs needs: CUDA events over back-to-back calls then read
+   the host.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -82,6 +85,14 @@ FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
                 "f32: FMA")
 DECODE_DESIGN = ("split-KV + combine; bf16: mma.sync over the GQA group, "
                  "a 16-byte cp.async ring per warp; f32: FMA")
+RMSNORM_DESIGN = ("register path: a row held in registers by 1-16 warps, "
+                  "streaming 16-byte loads/stores, warp-shuffle sum, "
+                  "persistent grid, next row prefetched; else one block a row")
+EMBED_DESIGN = ("staged path: w staged once a persistent block, each warp "
+                "walks its own row tiles: x by 16-byte cp.async into a "
+                "2-stage ring, a row a lane against broadcast w columns, f32 "
+                "FMA + tanhf, the tile out by a bulk (TMA) store from a "
+                "double-buffered shared tile; else D-chunked w slabs")
 SQL_AVG = ("SELECT gender, AVG(t(emb)) FROM reviews WHERE len > 20 "
            "GROUP BY gender")
 SQL_PREDICT = "PREDICT emb USING TASK t FROM reviews WHERE len > 190"
@@ -102,6 +113,7 @@ def compare_kernel(fused_embed, fused_embed_ref, dev):
     shapes = ([(n, 16, k) for n in (1, 32, 100, 256, 511)
                for k in (8, 28, 33, 40)]
               + [(64, 32, 64), (512, 32, 64), (4096, 1024, 512),
+                 (4099, 64, 33), (257, 16, 1), (1000, 16, 512),
                  (0, 16, 33)])
     g = torch.Generator(device="cpu").manual_seed(1)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -175,7 +187,7 @@ def compare_lm_kernels(dev):
         tag = str(dtype)[6:]
         errs = []
         for n, d in ((1, 2560), (4, 2560), (32, 2560), (16384, 2560),
-                     (37, 80), (5, 7)):
+                     (2000, 16384), (3000, 1024), (37, 80), (5, 7)):
             x, w = randn((n, d), dtype), randn((d,), dtype, 0.1)
             errs.append(record("rmsnorm", dtype, rmsnorm(x, w),
                                rmsnorm_ref(x, w), TOL[dtype], f"{n}x{d}"))
@@ -368,7 +380,7 @@ def quickstart():
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # each wrapper's device kernels, by the names the profiler shows
 PROFILE_KERNELS = {
-    "rmsnorm": ("rmsnorm_kernel",),
+    "rmsnorm": ("rmsnorm_kernel", "rmsnorm_reg_kernel"),
     "flash_attention": ("flash_mma_kernel", "flash_fma_kernel"),
     "decode_attention": ("decode_mma_kernel", "decode_fma_kernel",
                          "decode_combine_kernel")}
@@ -613,24 +625,18 @@ def bound_ms(n: int, d: int, k: int):
 
 
 def timings(fused_embed, fused_embed_ref, dev, K):
+    """fused_embed at the SQL path's 256-row chunk, at 2^20 rows and at one
+    row, with its plain version (no PyTorch call computes it alone)."""
     g = torch.Generator(device="cpu").manual_seed(2)
     res = {}
     for n, d, k, reps in ((256, 16, K, 400), (1 << 20, 16, K, 50),
                           (1, 16, 8, 400)):
         x = torch.randn((n, d), generator=g).to(dev)
         w = (torch.randn((d, k), generator=g) * 0.05).to(dev)
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = time_ms(lambda: fused_embed_ref(x, w), reps)
-        k1 = time_ms(lambda: fused_embed(x, w), reps)
-        k2 = time_ms(lambda: fused_embed(x, w), reps)
-        p2 = time_ms(lambda: fused_embed_ref(x, w), reps)
-        b, by = bound_ms(n, d, k)
-        res[(n, d, k)] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                          "bound_ms": b, "bound_by": by}
-        log(f"time fused_embed N={n} D={d} K={k}: kernel {k1:.5f}/{k2:.5f} "
-            f"ms, plain {p1:.5f}/{p2:.5f} ms, bound {b:.6f} ms ({by}); "
-            f"library: none (no single PyTorch call computes "
-            f"tanh(((x-mean)*scale)@w))")
+        res[(n, d, k)] = _timed(
+            "fused_embed", lambda: fused_embed(x, w),
+            lambda: fused_embed_ref(x, w), None, reps, bound_ms(n, d, k),
+            [n, d, k], TOL[torch.float32])
     return res
 
 
@@ -665,11 +671,12 @@ def _timed(name, kernel, plain, library, reps, bound, shape, atol,
         extra["library_causal_device_ms"] = device_ms(library_causal,
                                                       dev_reps)
     b, by = bound
+    extra["bound_share"] = b / extra["device_ms"]
     log(f"time {name} {shape}: max err {err:.2e} ({beyond:.2e} beyond one "
         f"ulp); kernel {k1:.5f}/{k2:.5f} ms, plain "
         f"{p1:.5f}/{p2:.5f} ms, library "
         f"{'none' if lib is None else f'{lib:.5f} ms'}"
-        + "".join(f", {key} {ms:.5f} ms" for key, ms in extra.items())
+        + "".join(f", {key} {v:.5f}" for key, v in extra.items())
         + f", bound {b:.6f} ms ({by})")
     return {"shape": shape, "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "library_ms": lib, **extra, "bound_ms": b, "bound_by": by}
@@ -690,14 +697,18 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
 
     res = {}
     D, Hq, Hkv, hd, W = 2560, 32, 8, 80, 4096
-    for label, n in (("decode", slots), ("prefill", slots * prompt)):
-        x, w = randn((n, D)), randn((D,), 0.1)
+    # decode and prefill of the serving path; llama3-405b's width, whose rows
+    # take 8 warps each
+    for label, n, d in (("decode", slots, D), ("prefill", slots * prompt, D),
+                        ("wide", 4096, 16384)):
+        x, w = randn((n, d)), randn((d,), 0.1)
         w1 = 1.0 + w.float()
         res[f"rmsnorm_{label}"] = _timed(
             "rmsnorm", lambda: rmsnorm(x, w), lambda: rmsnorm_ref(x, w),
-            lambda: F.rms_norm(x, (D,), w1.to(bf), 1e-6), 200,
-            _bound(2.0 * (2 * n * D + D), 4.0 * n * D, BF16_FLOPS_PER_S),
-            [n, D], TOL[bf])
+            lambda: F.rms_norm(x, (d,), w1.to(bf), 1e-6), 200,
+            _bound(2.0 * (2 * n * d + d), 4.0 * n * d, BF16_FLOPS_PER_S),
+            [n, d], TOL[bf])
+        del x
     for label, B, S in (("prefill", slots, prompt), ("long", 1, LONG_S)):
         q = randn((B, S, Hq, hd)).transpose(1, 2)
         k = randn((B, S, Hkv, hd)).transpose(1, 2)
@@ -775,9 +786,6 @@ def main() -> int:
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
 
-    main_shape = tm[(256, 16, mp["K"])]
-    big = tm[(1 << 20, 16, mp["K"])]
-    floor = tm[(1, 16, 8)]
     kernels = [{
         "name": "fused_embed", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_embed.cu",
@@ -785,12 +793,9 @@ def main() -> int:
         "launches": mp["launches"],
         "max_abs_err": worst[torch.float32],
         "max_abs_err_bf16": worst[torch.bfloat16],
-        "shape": [256, 16, mp["K"]],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None,
-        "launch_floor_ms": floor["ms"],
-        "at_2p20_rows": {"shape": [1 << 20, 16, mp["K"]], **big},
+        **tm[(256, 16, mp["K"])], "design": EMBED_DESIGN,
+        "at_2p20_rows": tm[(1 << 20, 16, mp["K"])],
+        "at_1_row": tm[(1, 16, 8)],
     }]
 
     def lm_entry(name, replaces, timing, **extra):
@@ -803,7 +808,9 @@ def main() -> int:
 
     kernels += [
         lm_entry("rmsnorm", "src/repro/kernels/rmsnorm.py:32",
-                 lt["rmsnorm_decode"], at_prefill=lt["rmsnorm_prefill"]),
+                 lt["rmsnorm_decode"], design=RMSNORM_DESIGN,
+                 at_prefill=lt["rmsnorm_prefill"],
+                 at_wide=lt["rmsnorm_wide"]),
         lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
                  lt["flash_attention_prefill"], design=FLASH_DESIGN,
                  at_8192=lt["flash_attention_long"]),

@@ -42,6 +42,7 @@ _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
+_SMS: Dict[int, int] = {}               # device index -> SM count
 build_seconds: Dict[str, float] = {}     # name -> nvcc wall seconds
 
 
@@ -119,6 +120,46 @@ def check_aligned(name: str, d: int, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: a {t.dtype} operand with strides "
                              f"{t.stride()} at offset {t.data_ptr() % 16} "
                              "is not 16-byte aligned")
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of the CUDA ``device``, read once per device."""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms = _SMS.get(index)
+    if sms is None:
+        with _LOCK:
+            sms = _SMS.setdefault(index, torch.cuda.get_device_properties(
+                index).multi_processor_count)
+    return sms
+
+
+def even_grid(units: int, cap: int) -> int:
+    """The fewest blocks, at most ``cap``, that take ``units`` work units
+    (rows, tiles) in as few rounds as ``cap`` blocks would: each block
+    then takes the same count, give or take one, and no block of a
+    persistent grid idles through the last round."""
+    rounds = -(-units // cap)
+    return -(-units // rounds)
+
+
+class Query:
+    """A C function ``symbol`` of ``csrc/<lib>.cu`` that launches nothing
+    and returns an int (an occupancy query); it runs with ``device``
+    current. The library is loaded at the first call."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence):
+        self.lib, self.symbol, self.argtypes = lib, symbol, list(argtypes)
+        self._fn = None
+
+    def __call__(self, device: torch.device, *args) -> int:
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            return int(self._fn(*args))
 
 
 class Kernel:

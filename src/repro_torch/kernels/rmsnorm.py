@@ -4,7 +4,12 @@ kernel.
 Port of ``src/repro/kernels/rmsnorm.py``. The reference is a Pallas TPU
 kernel over row blocks that needs ``N % block_rows == 0``; here the kernel
 is hand-written CUDA C++ for Hopper (``csrc/rmsnorm.cu``, built by
-:mod:`repro_torch.kernels._build`), one block per row, and takes any N.
+:mod:`repro_torch.kernels._build`) and takes any N. Where D is one of the
+register instances' widths (:func:`_norm_instance`: the registered
+configs' d_model among them) and x and w are 16-byte aligned, a group of
+warps holds a row in registers and a persistent grid walks the rows
+(:func:`_norm_plan`); any other call takes the kernel's general path, one
+block per row.
 
 The wrapper dispatches on where the input lies: a CPU tensor takes the
 plain PyTorch version (:func:`repro_torch.kernels.ref.rmsnorm_ref`), a
@@ -14,6 +19,7 @@ no fallback between the two. ``rmsnorm.launch_count`` counts launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,7 +30,64 @@ _INT_MAX = 2 ** 31 - 1
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL = _build.Kernel("rmsnorm", "rmsnorm",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                        + [ctypes.c_float] + [ctypes.c_int] * 2)
+                        + [ctypes.c_float] + [ctypes.c_int] * 6)
+_RESIDENT = _build.Query("rmsnorm", "rmsnorm_resident", [ctypes.c_int] * 3)
+VECTOR_BYTES = 16
+MAX_VECTORS = 10                # 16-byte vectors of a row a lane holds
+WARPS_PER_ROW = (1, 2, 4, 8, 16)
+# the kernel's register instances (vectors a lane, warps a row)
+INSTANCES = frozenset([(4, 1), (7, 16), (8, 16)]
+                      + [(nv, wpr) for nv in (7, 8, 10)
+                         for wpr in WARPS_PER_ROW[:-1]])
+MAX_GROUPS = 8                  # warps (rows at one warp a row) a block
+GENERAL_GRID = 65536 * 16
+_PLANS: Dict[tuple, "NormPlan"] = {}
+
+
+class NormPlan(NamedTuple):
+    """How a call runs: ``nv == 0`` is the general path on ``grid`` blocks;
+    else the register instance (``nv`` vectors a lane, ``wpr`` warps a
+    row) with ``groups`` row groups a block on ``grid`` blocks. Group ``g``
+    of block ``b`` takes rows ``b * groups + g``, then every
+    ``grid * groups``-th row after it."""
+    nv: int
+    wpr: int
+    groups: int
+    grid: int
+
+
+def _norm_instance(d: int, itemsize: int) -> Optional[Tuple[int, int]]:
+    """(nv, wpr) of the register instance for a row of ``d`` elements of
+    ``itemsize`` bytes: the fewest warps a row that keep a lane at no more
+    than ``MAX_VECTORS`` vectors, if the row fills them exactly and the
+    kernel has that instance; else None."""
+    vec = VECTOR_BYTES // itemsize
+    if d <= 0 or d % vec:
+        return None
+    nvec = d // vec
+    for wpr in WARPS_PER_ROW:
+        if nvec <= MAX_VECTORS * 32 * wpr:
+            nv, rest = divmod(nvec, 32 * wpr)
+            return (nv, wpr) if not rest and (nv, wpr) in INSTANCES else None
+    return None
+
+
+def _norm_plan(n: int, d: int, itemsize: int, sm_count: int,
+               resident: Callable[[int, int], int],
+               aligned: bool = True) -> NormPlan:
+    """The launch of an [n, d] call. The register path needs an instance
+    for d and 16-byte aligned x and w; its grid is persistent: at most
+    ``sm_count * resident(nv, wpr)`` blocks (the blocks an SM holds at
+    full size), evened out over the row groups. Few rows are spread over
+    the SMs with fewer groups a block."""
+    inst = _norm_instance(d, itemsize) if aligned else None
+    if inst is None:
+        return NormPlan(0, 0, 0, min(n, GENERAL_GRID))
+    nv, wpr = inst
+    full = max(1, MAX_GROUPS // wpr)
+    groups = max(1, min(full, -(-n // sm_count)))
+    return NormPlan(nv, wpr, groups, _build.even_grid(
+        -(-n // groups), sm_count * max(1, resident(nv, wpr))))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -55,10 +118,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     y = torch.empty_like(x)
     if n == 0 or d == 0:
         return y
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    key = (n, d, x_bf16,
+           (x.data_ptr() | w.data_ptr()) % VECTOR_BYTES == 0, x.device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        dev = x.device
+        plan = _norm_plan(n, d, x.element_size(), _build.sm_count(dev),
+                          lambda nv, wpr: _RESIDENT(dev, x_bf16, nv, wpr),
+                          aligned=key[3])
+        if len(_PLANS) > 4096:          # shapes of a long-running server
+            _PLANS.clear()
+        _PLANS[key] = plan
     _KERNEL.launch(rmsnorm, x.device, x.data_ptr(), w.data_ptr(),
-                   y.data_ptr(), n, d, float(eps),
-                   int(x.dtype == torch.bfloat16),
-                   int(w.dtype == torch.bfloat16),
+                   y.data_ptr(), n, d, float(eps), x_bf16,
+                   int(w.dtype == torch.bfloat16), *plan,
                    what=lambda: f"x {tuple(x.shape)} {x.dtype}")
     return y
 

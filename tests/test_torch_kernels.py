@@ -359,3 +359,144 @@ def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "other.cuh").write_text("// new\n")
     assert _build._library_path("k") not in (first, edited)
     assert first.parent == tmp_path / "build"
+
+
+# -- the launch plans of rmsnorm and fused_embed ----------------------------
+# The CUDA kernels walk rows (rmsnorm) or row tiles (fused_embed) over a
+# persistent grid the wrappers plan in Python; every row must be taken
+# exactly once, and the register / staged path taken exactly where the
+# width, size and alignment rules allow it.
+
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.kernels.fused_embed import (BLOCK_SMEM,  # noqa: E402
+                                             MAX_WARPS, SLICE_SMEM,
+                                             STAGED_D, W_CAP, WARP_ROWS,
+                                             _plan, _slice_smem,
+                                             _staged_smem)
+from repro_torch.kernels.rmsnorm import (INSTANCES, MAX_GROUPS,  # noqa: E402
+                                         MAX_VECTORS, _norm_instance,
+                                         _norm_plan)
+
+_SMS = 132
+
+
+def _resident(blocks):
+    return lambda *_: blocks
+
+
+@pytest.mark.parametrize("n", [1, 7, 32, 131, 132, 1000, 16384, 200001])
+@pytest.mark.parametrize("d,itemsize", [(2560, 2), (2560, 4), (16384, 2),
+                                        (16384, 4), (1024, 2), (80, 2)])
+@pytest.mark.parametrize("resident", [1, 2, 3])
+def test_norm_plan_covers_each_row_once(n, d, itemsize, resident):
+    plan = _norm_plan(n, d, itemsize, _SMS, _resident(resident))
+    seen = np.zeros(n, np.int64)
+    if plan.nv == 0:                 # the general path: a block a row
+        assert 1 <= plan.grid <= n
+        for b in range(plan.grid):
+            seen[b::plan.grid] += 1
+    else:
+        assert 1 <= plan.groups * plan.wpr <= max(MAX_GROUPS, plan.wpr)
+        assert plan.grid <= _SMS * resident
+        stride = plan.grid * plan.groups
+        for b in range(plan.grid):
+            for g in range(plan.groups):
+                seen[b * plan.groups + g::stride] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_norm_plan_takes_registers_at_every_config_width(arch, itemsize):
+    d = get_config(arch).d_model
+    nv, wpr = _norm_instance(d, itemsize)
+    assert (nv, wpr) in INSTANCES and nv <= MAX_VECTORS
+    assert nv * 32 * wpr * (16 // itemsize) == d
+    # the fewest warps a row that keep a lane within MAX_VECTORS
+    assert wpr == 1 or d // (16 // itemsize) > MAX_VECTORS * 32 * (wpr // 2)
+    plan = _norm_plan(16384, d, itemsize, _SMS, _resident(2))
+    assert (plan.nv, plan.wpr) == (nv, wpr)
+    assert _norm_plan(16384, d, itemsize, _SMS, _resident(2),
+                      aligned=False).nv == 0
+
+
+@pytest.mark.parametrize("d,itemsize", [(80, 2), (7, 4), (2561, 2),
+                                        (3072, 2), (2564, 4), (0, 2),
+                                        (40960, 2)])
+def test_norm_plan_takes_the_general_path_off_the_instances(d, itemsize):
+    assert _norm_instance(d, itemsize) is None
+    assert _norm_plan(100, max(d, 1), itemsize, _SMS, _resident(2)).nv == 0
+
+
+def test_norm_plan_spreads_few_rows_over_the_sms():
+    decode = _norm_plan(32, 2560, 2, _SMS, _resident(2))
+    assert (decode.groups, decode.grid) == (1, 32)     # a warp a row
+    prefill = _norm_plan(16384, 2560, 2, _SMS, _resident(2))
+    # 2048 row groups in 8 rounds of at most 264 blocks: 256 blocks of 8
+    assert (prefill.groups, prefill.grid) == (MAX_GROUPS, 256)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 255, 256, 257, 4099,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("k", [1, 8, 33, 64, 65, 512])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_embed_plan_covers_each_row_once(n, k, itemsize):
+    plan = _plan(n, 16, k, itemsize, _SMS, _resident(3))
+    assert plan.rows > 0
+    tiles = -(-n // plan.rows)
+    assert 1 <= plan.warps <= MAX_WARPS
+    assert 1 <= plan.grid <= _SMS * 3
+    assert (plan.grid - 1) * plan.warps < tiles             # no idle block
+    seen = np.zeros(n, np.int64)
+    stride = plan.grid * plan.warps
+    for b in range(plan.grid):
+        for v in range(plan.warps):
+            for t in range(b * plan.warps + v, tiles, stride):
+                seen[t * plan.rows:(t + 1) * plan.rows] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 64, 128, 1024])
+@pytest.mark.parametrize("k", [1, 8, 28, 33, 40, 64, 65, 512, 1024, 1025])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_embed_plan_stages_exactly_where_the_rules_allow(d, k, itemsize):
+    plan = _plan(4096, d, k, itemsize, _SMS, _resident(2))
+    staged = d in STAGED_D and 4 * d * k <= W_CAP and any(
+        r * k * itemsize % 16 == 0
+        and _slice_smem(d, k, r, itemsize) <= SLICE_SMEM for r in WARP_ROWS)
+    assert (plan.rows > 0) == staged
+    assert _plan(4096, d, k, itemsize, _SMS, _resident(2),
+                 aligned=False).rows == 0
+    if staged:
+        assert plan.rows in WARP_ROWS
+        # a tile's outputs and inputs are whole 16-byte chunks
+        assert plan.rows * k * itemsize % 16 == 0
+        assert plan.rows * d * itemsize % 16 == 0
+        assert _slice_smem(d, k, plan.rows, itemsize) <= SLICE_SMEM
+        assert _staged_smem(d, k, plan.rows, itemsize,
+                            plan.warps) <= BLOCK_SMEM
+
+
+def test_embed_plan_spreads_the_main_path_chunk():
+    # a 256-row chunk of the SQL path spreads over at least 16 blocks; 2^20
+    # rows take the largest tile and full blocks, within one round of
+    # resident blocks
+    chunk = _plan(256, 16, 33, 4, _SMS, _resident(3))
+    assert chunk.grid >= 16 and chunk.warps > 1
+    big = _plan(1 << 20, 16, 33, 4, _SMS, _resident(2))
+    assert (big.rows, big.warps) == (max(WARP_ROWS), MAX_WARPS)
+    blocks = -(-(1 << 20) // (big.rows * big.warps))
+    assert -(-blocks // big.grid) == -(-blocks // (_SMS * 2))
+
+
+@pytest.mark.parametrize("units", [1, 7, 131, 132, 133, 264, 2048, 4096,
+                                   100003])
+@pytest.mark.parametrize("cap", [1, 32, 132, 264, 396])
+def test_even_grid_keeps_the_rounds_and_evens_the_blocks(units, cap):
+    grid = _build.even_grid(units, cap)
+    assert 1 <= grid <= min(units, cap)
+    assert -(-units // grid) == -(-units // cap)      # no extra round
+    base = units // grid                              # counts differ by 1
+    assert all(base <= len(range(b, units, grid)) <= base + 1
+               for b in range(min(grid, 50)))
+

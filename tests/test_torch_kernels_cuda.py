@@ -325,3 +325,134 @@ def test_softcap_config_raises_on_the_card(cuda_device):
     with pytest.raises(NotImplementedError):
         m.apply(params, torch.zeros((1, 8), dtype=torch.long,
                                     device=cuda_device))
+
+
+# -- the register / staged paths of the redesigned rmsnorm and fused_embed ---
+# rmsnorm: a register instance for each registered config's d_model (one to
+# 16 warps a row), the general path for any other D, a D off the vector
+# width and unaligned x. fused_embed: the staged path at its tile edges and
+# K from 1 to 512, the general path for w above the shared-memory cap and
+# unaligned x.
+
+import sys  # noqa: E402
+
+from repro_torch.kernels.fused_embed import _plan  # noqa: E402
+from repro_torch.kernels.rmsnorm import _norm_instance  # noqa: E402
+
+REGISTER_WIDTHS = (1024, 2048, 2560, 4096, 7168, 8192, 16384)
+_EMBED = sys.modules["repro_torch.kernels.fused_embed"]
+_NORM = sys.modules["repro_torch.kernels.rmsnorm"]
+
+
+def _unaligned(shape, seed, dev, dtype):
+    """A contiguous [N, D] view that starts one element past a 16-byte
+    boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = _randn((n + 1,), seed, dev, dtype)
+    view = buf[1:].view(shape)
+    assert view.data_ptr() % 16
+    return view
+
+
+def _rms_check(x, w, dtype):
+    before = rmsnorm.launch_count
+    got = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launch_count == before + 1
+    _assert_close(got, rmsnorm_ref(x, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", REGISTER_WIDTHS)
+@pytest.mark.parametrize("N", [1, 32, 3000])
+def test_cuda_rmsnorm_register_widths(cuda_device, dtype, wdtype, D, N):
+    assert _norm_instance(D, torch.tensor([], dtype=dtype).element_size())
+    x = _randn((N, D), N + D, cuda_device, dtype)
+    w = (_randn((D,), D, cuda_device, torch.float32) * 0.1).to(wdtype)
+    _rms_check(x, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["outside", "odd", "unaligned",
+                                  "many_rows"])
+def test_cuda_rmsnorm_general_path(cuda_device, dtype, wdtype, case):
+    N, D = {"outside": (300, 3072), "odd": (300, 2561),
+            "unaligned": (300, 2560), "many_rows": (200000, 80)}[case]
+    if case == "unaligned":
+        x = _unaligned((N, D), 5, cuda_device, dtype)
+    else:
+        x = _randn((N, D), 5, cuda_device, dtype)
+        assert _norm_instance(D, x.element_size()) is None
+    w = (_randn((D,), 6, cuda_device, torch.float32) * 0.1).to(wdtype)
+    _rms_check(x, w, dtype)
+    key = (N, D, int(dtype == torch.bfloat16), case != "unaligned",
+           x.device)
+    assert _NORM._PLANS[key].nv == 0            # the general path ran
+
+
+def _embed_check(x, w, dtype, staged, mean=0.5, scale=2.0):
+    n, d = x.shape
+    before = fused_embed.launch_count
+    got = fused_embed(x, w, mean=mean, scale=scale)
+    torch.cuda.synchronize()
+    assert fused_embed.launch_count == before + 1
+    key = (n, d, w.shape[1], dtype, x.data_ptr() % 16 == 0, x.device)
+    assert (_EMBED._PLANS[key].rows > 0) == staged
+    want = fused_embed_ref(x, w, mean, scale)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err < TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 8, 28, 33, 40, 64, 65, 512])
+@pytest.mark.parametrize("tile,offset", [("small", -1), ("small", 0),
+                                         ("small", 1), ("big", -1),
+                                         ("big", 0), ("big", 1),
+                                         ("2^20", 3)])
+def test_cuda_fused_embed_staged_tile_edges(cuda_device, dtype, K, tile,
+                                            offset):
+    size = torch.tensor([], dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    # three tiles of the plan of a short call (the SQL path's 256-row
+    # chunk) or of a long one, and one past 2^20 rows
+    rows = {"small": 3 * _plan(256, 16, K, size, sms, lambda *_: 1).rows,
+            "big": 3 * _plan(1 << 20, 16, K, size, sms, lambda *_: 1).rows,
+            "2^20": 1 << 20}[tile]
+    assert rows
+    N = rows + offset
+    x, w = _inputs(N, 16, K, seed=K)
+    _embed_check(torch.from_numpy(x).to(cuda_device, dtype),
+                 torch.from_numpy(w).to(cuda_device), dtype, staged=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 255, 256, 4099])
+def test_cuda_fused_embed_staged_widths(cuda_device, dtype, D, N):
+    x, w = _inputs(N, D, 33, seed=D + N)
+    _embed_check(torch.from_numpy(x).to(cuda_device, dtype),
+                 torch.from_numpy(w).to(cuda_device), dtype, staged=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["w_above_cap", "unaligned", "wide_d"])
+def test_cuda_fused_embed_general_path(cuda_device, dtype, case):
+    N, D, K = {"w_above_cap": (1000, 64, 512), "unaligned": (1000, 16, 33),
+               "wide_d": (300, 1024, 512)}[case]
+    _, w = _inputs(N, D, K, seed=9)
+    if case == "unaligned":
+        x = _unaligned((N, D), 9, cuda_device, dtype)
+    else:
+        x = _randn((N, D), 9, cuda_device, dtype)
+    _embed_check(x, torch.from_numpy(w).to(cuda_device), dtype,
+                 staged=False)
