@@ -23,7 +23,25 @@ Phases, each raising on failure (the script then exits non-zero):
    ``backend="numpy"`` session at atol 1e-5;
 5. the quickstart query (full 16-model zoo, 600 rows) through the
    selector, on the card;
-6. LM path, h2o-danube-1.8b at full width and depth (random weights from
+6. served path: the same table, zoo and task behind the online tier, on a
+   decoupled store. It logs Eq. 10's op_cost for "host" and "cuda" at the
+   largest request's rows (the servers' ``nrows_hint``) and at 2048 (what
+   dispatch workers plan at) and, if it picks the host at either, pins the
+   phase to the card (``EngineConfig(devices=("cuda",))``). A
+   ``MorphingServer`` serves 32 concurrent ``PREDICT ... WHERE len > c``
+   requests (8 cuts in 180-194, ~25-100 K rows each) cold, then again
+   warm, each round through a fresh server stopped before its launch
+   count is read: every lane on "cuda", launches > 0 cold and 0 warm, a
+   warm share hit rate of 1.0, no retry, failed batch or breaker trip,
+   and every score within 1e-5 of a ``backend="numpy"`` server's; then
+   one fresh request with a scripted ``FaultInjector`` error, retried to
+   the numpy server's scores; then a ``DispatchServer`` of 2 torch worker
+   processes on the same session serves the 32 requests again: scores
+   within 1e-5 of the in-process ones, each worker's profile of the card
+   measured, trunk rows in the workers' ``ServerStats``, no worker death,
+   redispatch, retry or failed batch. It logs wall seconds, rows/s,
+   latency percentiles, coalescing and the launches of each round;
+7. LM path, h2o-danube-1.8b at full width and depth (random weights from
    ``--seed``), through ``repro_torch.models`` / ``repro_torch.launch.serve``:
    a float32 copy, B = 4, prompt 1024, 16 teacher-forced decode steps, and
    B = 1, prompt 8192 (past the 4096 window, so decode runs on the
@@ -34,7 +52,7 @@ Phases, each raising on failure (the script then exits non-zero):
    through the launcher's ``main`` as a user calls it. The launch counts
    of both are held to 24 flash_attention per prefill, 24 (gen - 1)
    decode_attention and 49 gen rmsnorm per slot chunk;
-7. time every kernel and its plain version with CUDA events at the main
+8. time every kernel and its plain version with CUDA events at the main
    paths' shapes (``fused_embed`` at 256, 2^20 and 1 rows; ``rmsnorm``
    also at 4096 x 16384, its multi-warp register instance), after holding
    the two together on those very inputs,
@@ -96,6 +114,15 @@ EMBED_DESIGN = ("staged path: w staged once a persistent block, each warp "
 SQL_AVG = ("SELECT gender, AVG(t(emb)) FROM reviews WHERE len > 20 "
            "GROUP BY gender")
 SQL_PREDICT = "PREDICT emb USING TASK t FROM reviews WHERE len > 190"
+CREATE_T = ("CREATE TASK t (INPUT=Series, OUTPUT IN ('POS','NEG','NEU'), "
+            "TYPE='Classification');")
+# the served path: 32 overlapping requests a round, 4 of each cut
+SERVE_CUTS = (180, 182, 184, 186, 188, 190, 192, 194)
+SERVE_REQUESTS = [f"PREDICT emb USING TASK t FROM reviews WHERE len > {c}"
+                  for c in SERVE_CUTS] * 4
+SERVE_FAULT_SQL = "PREDICT emb USING TASK t FROM reviews WHERE len < 3"
+DISPATCH_WORKERS = 2
+RESULT_TIMEOUT_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -270,8 +297,7 @@ def main_path(args, fused_embed):
         sess = MorphingSession(selector=sel, zoo=zoo,
                                config=EngineConfig(backend=backend))
         sess.register_table("reviews", table)
-        sess.sql("CREATE TASK t (INPUT=Series, OUTPUT IN ('POS','NEG',"
-                 "'NEU'), TYPE='Classification');")
+        sess.sql(CREATE_T)
         sessions[backend] = sess
 
     sess = sessions["torch"]
@@ -338,7 +364,9 @@ def main_path(args, fused_embed):
     return {"launches": cold[1], "cold_s": cold[2], "warm_s": warm[2],
             "predict_s": pred[2], "predict_launches": pred[1],
             "model": rm.model_id, "K": int(rm.zoo_model.W.shape[1]),
-            "stage_count": tb.stage_count}
+            "stage_count": tb.stage_count,
+            "world": {"sel": sel, "zoo": zoo, "table": table,
+                      "sample": sample}}
 
 
 # -- phase 5: the quickstart query ------------------------------------------
@@ -375,7 +403,207 @@ def quickstart():
         f"rows={dict((k, np.asarray(v).tolist()) for k, v in res.rows.items())}")
 
 
-# -- phase 6: the LM path ---------------------------------------------------
+# -- phase 6: the served path ------------------------------------------------
+
+def _serve_round(server_of, requests, fused_embed, label):
+    """Serve ``requests`` concurrently through a fresh server, stopped
+    (lanes joined) before the launch count is read. Returns (scores of
+    each request, ServerStats, launches, wall seconds, the server)."""
+    fused_embed.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with server_of() as srv:
+        ids = [srv.submit(q) for q in requests]
+        scores = [srv.result(i, timeout=RESULT_TIMEOUT_S).scores
+                  for i in ids]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fused_embed.launch_count
+    st = srv.stats()
+    rows = sum(len(x) for x in scores)
+    log(f"served {label}: {len(requests)} requests, {rows} rows in "
+        f"{secs:.4f} s ({rows / secs:.1f} rows/s), launches={launches}, "
+        f"lanes={[(ln.key, ln.device) for ln in srv._lanes.values()]}, "
+        f"p50={st.p50_latency_s:.4f} s p95={st.p95_latency_s:.4f} s, "
+        f"mean_coalesced={st.mean_coalesced:.2f} batches={st.batches}, "
+        f"embed_rows={st.embed_rows} embed_batches={st.embed_batches} "
+        f"dedup_rows={st.dedup_rows} share_hit_rate={st.share_hit_rate:.4f}"
+        f", batch_rows_by_lane={st.batch_rows_by_lane}, retries="
+        f"{st.retries} failed_batches={st.failed_batches} breaker_trips="
+        f"{st.breaker_trips}")
+    return scores, st, launches, secs, srv
+
+
+def _fault_free(st, label):
+    check(st.retries == 0 and st.failed_batches == 0
+          and st.breaker_trips == 0,
+          f"{label}: retries {st.retries}, failed batches "
+          f"{st.failed_batches}, breaker trips {st.breaker_trips}")
+
+
+def _same_scores(got, want, label):
+    worst = 0.0
+    for a, b in zip(got, want, strict=True):
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        check(a.shape == b.shape, f"{label}: shape {a.shape} != {b.shape}")
+        check(bool(np.all(np.isfinite(a))), f"{label}: scores not finite")
+        worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+    check(worst <= ROW_ATOL, f"{label}: scores differ by {worst}")
+    return worst
+
+
+def served_path(world, fused_embed, model_id, torch_device="cuda"):
+    """The online serving tier on the card: ``MorphingServer`` lanes and a
+    ``DispatchServer`` of worker processes, both over the SQL path's
+    table and linear zoo, held against a ``backend="numpy"`` server."""
+    import tempfile
+
+    from repro_torch.engine import (AdmissionPolicy, DispatchServer,
+                                    EngineConfig, MorphingServer,
+                                    MorphingSession)
+    from repro_torch.pipeline.cost import choose_device, op_cost
+    from repro_torch.training import FaultInjector
+
+    table = world["table"]
+    hint = max(int((table["len"] > c).sum()) for c in SERVE_CUTS)
+    # one retry for the fault round; the queue cap of a deployment whose
+    # requests run to 10^5 rows (the default 65536 would reject them)
+    policy = AdmissionPolicy(retry_limit=1, max_queue_rows=1 << 24)
+    tmp = tempfile.TemporaryDirectory(prefix="served-")
+    root = Path(tmp.name)
+
+    def session(backend, devices):
+        sess = MorphingSession(
+            selector=world["sel"], zoo=world["zoo"],
+            root=root / f"{backend}-{'-'.join(devices)}",
+            config=EngineConfig(model_store="decoupled", backend=backend,
+                                devices=devices, policy=policy,
+                                torch_device=torch_device))
+        sess.register_table("reviews", table)
+        sess.sql(CREATE_T)
+        rm = sess.resolve_task("t", world["sample"].X, world["sample"].y)
+        check(rm.model_id == model_id,
+              f"served session resolved {rm.model_id}, not {model_id}")
+        return sess
+
+    try:
+        sess = session("auto", ("host", "cuda"))
+        rm = sess.models["t"]
+        picks = {}
+        for n in (hint, 2048):
+            costs = {d: op_cost(rm.profile, n, d, sess.hw)
+                     for d in sess.devices}
+            picks[n] = choose_device(rm.profile, n, sess.devices, sess.hw)
+            log(f"Eq. 10 at {n} rows: op_cost " + ", ".join(
+                f"{d} {c:.6e} s" for d, c in costs.items())
+                + f" -> {picks[n]}")
+        if "host" in picks.values():
+            # a deployment that pins the trunk to the card
+            log("Eq. 10 picks the host at "
+                f"{[n for n, d in picks.items() if d == 'host']} rows: the "
+                "served phase runs with EngineConfig(devices=('cuda',))")
+            sess = session("auto", ("cuda",))
+        check(sess.hw is not None and sess.hw["cuda"].measured,
+              "served session: the card's profile was not measured")
+        ref = session("numpy", ("host", "cuda"))
+
+        def server(s):
+            return lambda: MorphingServer(session=s, nrows_hint=hint)
+
+        want, _, _, rsecs, _ = _serve_round(server(ref), SERVE_REQUESTS,
+                                            fused_embed, "numpy server")
+        out = {}
+        for label in ("cold", "warm"):
+            got, st, launches, secs, srv = _serve_round(
+                server(sess), SERVE_REQUESTS, fused_embed, label)
+            check(all(ln.device == "cuda" for ln in srv._lanes.values()),
+                  f"{label}: lanes on {[ln.device for ln in srv._lanes.values()]}")
+            _fault_free(st, label)
+            err = _same_scores(got, want, f"served {label} vs numpy")
+            log(f"served {label} vs numpy server: max abs diff {err:.3e}")
+            out[label] = {"scores": got, "stats": st, "launches": launches,
+                          "secs": secs, "err": err}
+        check(out["cold"]["launches"] > 0,
+              "the cold round launched no fused_embed")
+        check(out["warm"]["launches"] == 0,
+              f"the warm round launched fused_embed "
+              f"{out['warm']['launches']} times")
+        check(out["warm"]["stats"].share_hit_rate == 1.0,
+              f"warm share hit rate {out['warm']['stats'].share_hit_rate}")
+
+        # one injected fault on a fresh request, retried through the lane
+        fi = FaultInjector(scripted_errors={0})
+        sess.backends.set_fault_injector(fi)
+        try:
+            got, st, f_launches, _, _ = _serve_round(
+                server(sess), [SERVE_FAULT_SQL], fused_embed, "fault round")
+        finally:
+            fi.disarm()
+            sess.backends.set_fault_injector(None)
+        want_f, _, _, _, _ = _serve_round(server(ref), [SERVE_FAULT_SQL],
+                                          fused_embed, "numpy fault round")
+        check(fi.injected_errors == 1 and st.retries >= 1
+              and st.failed_batches == 0,
+              f"fault round: injected {fi.injected_errors}, retries "
+              f"{st.retries}, failed batches {st.failed_batches}")
+        check(f_launches > 0, "the fault round's retry launched no kernel")
+        f_err = _same_scores(got, want_f, "fault round vs numpy")
+
+        # the dispatch tier: worker processes, each its own CUDA context
+        dsrv = DispatchServer(session=sess, workers=DISPATCH_WORKERS,
+                              worker_backend="torch",
+                              start_timeout_s=RESULT_TIMEOUT_S,
+                              lease_timeout_s=RESULT_TIMEOUT_S)
+        t0 = time.perf_counter()
+        dsrv.start()
+        start_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            ids = [dsrv.submit(q) for q in SERVE_REQUESTS]
+            got = [dsrv.result(i, timeout=RESULT_TIMEOUT_S).scores
+                   for i in ids]
+            d_secs = time.perf_counter() - t0
+            dst = dsrv.stats()
+            hw = {w: h.hw for w, h in dsrv._workers.items()}
+        finally:
+            dsrv.stop()
+        d_rows = sum(len(x) for x in got)
+        d_err = _same_scores(got, out["cold"]["scores"],
+                             "dispatch vs in-process")
+        for w, prof in hw.items():
+            check(prof is not None and prof["cuda"].measured,
+                  f"dispatch worker {w} did not measure the card")
+        check(sum(ws.embed_rows for ws in dst.per_worker.values()) > 0,
+              "no dispatch worker ran a trunk")
+        check(dst.worker_deaths == 0 and dst.redispatches == 0
+              and dst.retries == 0 and dst.failed_batches == 0,
+              f"dispatch: deaths {dst.worker_deaths}, redispatches "
+              f"{dst.redispatches}, retries {dst.retries}, failed batches "
+              f"{dst.failed_batches}")
+        log(f"dispatch: {DISPATCH_WORKERS} workers up in {start_s:.2f} s; "
+            f"{len(SERVE_REQUESTS)} requests, {d_rows} rows in {d_secs:.4f} s "
+            f"({d_rows / d_secs:.1f} rows/s), leases={dst.leases} "
+            f"scale_outs={dst.scale_outs}, per worker (embed_rows, "
+            f"embed_batches, rows): " + str({
+                w: (ws.embed_rows, ws.embed_batches, ws.rows)
+                for w, ws in dst.per_worker.items()})
+            + ", worker profiles (cuda flops/s, launch s): " + str({
+                w: (p["cuda"].flops_per_s, p["cuda"].launch_latency_s)
+                for w, p in hw.items()})
+            + f"; vs in-process max abs diff {d_err:.3e}")
+    finally:
+        tmp.cleanup()
+    cold, warm = out["cold"], out["warm"]
+    rows = sum(len(x) for x in cold["scores"])
+    return {"launches": cold["launches"], "picks": picks,
+            "devices": sess.devices, "cold_s": cold["secs"],
+            "warm_s": warm["secs"], "numpy_s": rsecs, "rows": rows,
+            "err": max(cold["err"], warm["err"], f_err, d_err),
+            "dispatch_start_s": start_s, "dispatch_s": d_secs}
+
+
+# -- phase 7: the LM path ---------------------------------------------------
 
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # each wrapper's device kernels, by the names the profiler shows
@@ -583,7 +811,7 @@ def lm_path(args, dev):
     return res
 
 
-# -- phase 7: timing --------------------------------------------------------
+# -- phase 8: timing --------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
     for _ in range(5):
@@ -781,6 +1009,7 @@ def main() -> int:
     lm_worst = compare_lm_kernels(dev)
     mp = main_path(args, fused_embed)
     quickstart()
+    sp = served_path(mp.pop("world"), fused_embed, mp["model"])
     lm = lm_path(args, dev)
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
@@ -790,7 +1019,7 @@ def main() -> int:
         "name": "fused_embed", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_embed.cu",
         "replaces": "src/repro/kernels/fused_embed.py:44",
-        "launches": mp["launches"],
+        "launches": mp["launches"], "launches_served": sp["launches"],
         "max_abs_err": worst[torch.float32],
         "max_abs_err_bf16": worst[torch.bfloat16],
         **tm[(256, 16, mp["K"])], "design": EMBED_DESIGN,
@@ -822,6 +1051,11 @@ def main() -> int:
         f"cold={mp['cold_s']:.4f} s warm={mp['warm_s']:.4f} s "
         f"predict={mp['predict_s']:.4f} s "
         f"(launches cold={mp['launches']} predict={mp['predict_launches']})")
+    log(f"served path: devices={sp['devices']} Eq. 10 picks={sp['picks']} "
+        f"cold={sp['cold_s']:.4f} s warm={sp['warm_s']:.4f} s numpy server="
+        f"{sp['numpy_s']:.4f} s ({sp['rows']} rows a round, launches cold="
+        f"{sp['launches']}), dispatch up {sp['dispatch_start_s']:.2f} s, "
+        f"served {sp['dispatch_s']:.4f} s, max abs diff {sp['err']:.3e}")
     log(f"lm path: serve bf16 prefill {sv['prefill_s']:.4f} s, decode "
         f"{sv['decode_tok_s']:.1f} tok/s, launches {sv['launches']}; f32 "
         "max |logit - plain| (prefill/decode): " + ", ".join(

@@ -3,19 +3,24 @@ task-centric AI-native DBMS), for one NVIDIA H100.
 
 Port of ``src/repro/__init__.py``. The package mirrors ``repro`` module
 for module and imports neither ``jax`` nor anything of ``repro``. Ported
-so far (the task-centric query path and LM serving):
+so far (the task-centric query path, its serving and dispatch tiers, and
+LM serving):
 
 - ``engine``    — MiniSQL parser, logical plan + optimizer (Eq. 10/11
-  placement with ``"cuda"`` as the device), and ``MorphingSession``;
+  placement with ``"cuda"`` as the device), ``MorphingSession``, the
+  share-aware serving lanes (``MorphingServer``) and the multi-process
+  dispatch tier (``DispatchServer``);
 - ``core``      — task-centric model selection (NMF subspace in torch,
   two-phase ``ModelSelector``, ``TaskRegistry``, the mini zoo);
 - ``pipeline``  — operator DAG, cost model, ``TorchBackend``, batchers,
   share cache and the chunked ``PipelineExecutor``;
-- ``storage``   — BLOB / decoupled stores, catalog, Mvec format;
+- ``storage``   — BLOB / decoupled stores, catalog, Mvec format,
+  checkpoints;
 - ``configs``   — the LM zoo's model configs and registry;
 - ``models``    — the decoder-only LM, dense families (prefill, decode
   over full or circular KV caches);
-- ``training``  — prefill / serve step functions;
+- ``training``  — prefill / serve step functions, fault injection and
+  restartable training control;
 - ``launch``    — the serving launcher (``ServingEngine``);
 - ``kernels``   — hand-written CUDA kernels for Hopper (``fused_embed``,
   ``rmsnorm``, ``flash_attention``, ``decode_attention``) with their
