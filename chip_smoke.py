@@ -11,8 +11,10 @@ Phases, each raising on failure (the script then exits non-zero):
    the main path's shapes, the calibration probe's, one wide shape and
    N = 0, in float32 (atol 2e-5) and bfloat16 (atol 2e-2); then
    ``rmsnorm``, ``flash_attention`` and ``decode_attention`` at the LM
-   path's full-width shapes and a few ragged ones (the attention kernels
-   also at their q / kv tile edges and decode's split edges), in float32
+   paths' full-width shapes (phase 7b's too: head dim 128 and 256, and
+   recurrentgemma's GQA group of 16 x 256) and a few ragged ones (the
+   attention kernels also at their q / kv tile edges and decode's split
+   edges), in float32
    (atol 2e-5 for rmsnorm, 5e-5 for attention) and bfloat16 (one bf16 ulp
    of the value plus atol 2e-2 for rmsnorm, 2e-4 for attention);
 4. SQL path: ``MorphingSession(backend="torch")`` over a ``--rows`` table
@@ -52,9 +54,28 @@ Phases, each raising on failure (the script then exits non-zero):
    through the launcher's ``main`` as a user calls it. The launch counts
    of both are held to 24 flash_attention per prefill, 24 (gen - 1)
    decode_attention and 49 gen rmsnorm per slot chunk;
+7b. the MoE, SSM and hybrid families at full width and depth (random
+   weights from ``--seed``, each model freed before the next):
+   olmoe-1b-7b (B 2, prompt 1024), mamba2-370m (B 4, prompt 1024) and
+   recurrentgemma-9b (B 1, prompt 4096, past its 2048 window), each as a
+   float32 copy with 8 teacher-forced decode steps held against the plain
+   route at atol 1e-3 (olmoe under a routing rule: the MoE routing
+   decisions that differ between the routes are counted per layer and at
+   most 1% may differ; the logits are held on the rows whose decisions
+   agreed in every layer), then the bf16 config through
+   ``ServingEngine.generate`` (32 slots, prompt 512, gen 32), timed, with
+   its peak memory and one decode profile; gemma-2b's float32 check (dense,
+   head dim 256: B 2, prompt 1024); then the launcher's ``main`` for
+   olmoe-1b-7b (1 slot from the cost model, 4 requests). Launch counts
+   are held to each config's layers: flash_attention / decode_attention /
+   rmsnorm 16 / 16 / 33 (olmoe), 0 / 0 / 49 (mamba2), 12 / 12 / 77
+   (recurrentgemma) a prefill / step / forward, times the slot chunks;
 8. time every kernel and its plain version with CUDA events at the main
    paths' shapes (``fused_embed`` at 256, 2^20 and 1 rows; ``rmsnorm``
-   also at 4096 x 16384, its multi-warp register instance), after holding
+   also at 4096 x 16384, its multi-warp register instance; the attention
+   kernels also at recurrentgemma-9b's served shapes, head dim 256 with
+   one kv head: flash at B 32, S 512, window 2048, decode at a 2048-slot
+   cache), after holding
    the two together on those very inputs,
    beside the least time the card could take (H100 SXM data
    sheet: 3.35 TB/s HBM, 67 TFLOP/s float32, 989 TFLOP/s bf16 dense
@@ -64,7 +85,9 @@ Phases, each raising on failure (the script then exits non-zero):
    kernels and the library calls also the card's own time a call under
    ``torch.profiler`` (``device_ms``) and its share of the bound, which a
    call of a few µs needs: CUDA events over back-to-back calls then read
-   the host.
+   the host. ``device_ms`` traces after a thrown-away warm-up step and
+   holds each kernel's event count to a whole multiple of the calls
+   (once more, then it raises), so a trace that lost events is not read.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -72,6 +95,7 @@ JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -98,6 +122,19 @@ LM_RUNS = ((4, 1024), (1, 8192))  # (B, prompt) of the f32 route checks
 LM_STEPS = 16                   # teacher-forced decode steps after each
 SERVE_PROMPT, SERVE_GEN = 512, 32
 LONG_S = 8192                   # the long prefill: past the 4096 window
+# phase 7b: the MoE, SSM and hybrid families at full width and depth, and
+# gemma-2b (dense, head dim 256); arch -> (B, prompt) of the f32 check
+FAMILIES = {"olmoe-1b-7b": (2, 1024), "mamba2-370m": (4, 1024),
+            "recurrentgemma-9b": (1, 4096)}   # past its 2048 window
+D256_DENSE = ("gemma-2b", 2, 1024)
+FAMILY_STEPS = 8
+# flash_attention a prefill, decode_attention a step, rmsnorm a forward
+FAMILY_LAUNCHES = {"olmoe-1b-7b": (16, 16, 33), "mamba2-370m": (0, 0, 49),
+                   "recurrentgemma-9b": (12, 12, 77),
+                   "gemma-2b": (18, 18, 37)}
+ROUTE_DIFF_MAX = 0.01           # share of MoE routing decisions that differ
+SERVE_SLOTS = 32                # the families' bf16 serving runs
+CLI_ARCH, CLI_REQUESTS = "olmoe-1b-7b", 4   # the launcher's run: 1 slot
 ROW_ATOL = 1e-5
 FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
                 "f32: FMA")
@@ -227,7 +264,14 @@ def compare_lm_kernels(dev):
                 (2, 32, 8, 300, 80, True, None),
                 (32, 32, 8, SERVE_PROMPT, 80, True, 4096),
                 (4, 32, 8, 1024, 80, True, 4096),
-                (1, 32, 8, LONG_S, 80, True, 4096)):
+                (1, 32, 8, LONG_S, 80, True, 4096),
+                # phase 7b's shapes: olmoe (D 128), gemma-2b and
+                # recurrentgemma (D 256, MQA, a 2048 window), ragged S
+                (2, 16, 16, 1024, 128, True, None),
+                (2, 8, 1, 1024, 256, True, None),
+                (32, 16, 1, SERVE_PROMPT, 256, True, 2048),
+                (1, 16, 1, 4096, 256, True, 2048),
+                (1, 16, 2, 300, 256, False, 33)):
             # the model's [B, S, H, D] layout, read through strided views
             q = randn((B, S, Hq, D), dtype).transpose(1, 2)
             k = randn((B, S, Hkv, D), dtype).transpose(1, 2)
@@ -245,7 +289,11 @@ def compare_lm_kernels(dev):
                 f"{max(errs):.2e}")
         for B, Hq, Hkv, W, D in ((32, 32, 8, 4096, 80), (4, 32, 8, 4096, 80),
                                  (1, 32, 8, 4096, 80), (64, 32, 8, 4096, 80),
-                                 (3, 16, 2, 384, 16)):
+                                 (3, 16, 2, 384, 16),
+                                 # olmoe; gemma-2b; recurrentgemma's G·D 4096
+                                 (32, 16, 16, 544, 128), (2, 8, 1, 1032, 256),
+                                 (32, 16, 1, 2048, 256),
+                                 (1, 16, 1, 2048, 256)):
             q = randn((B, Hq, D), dtype)
             kc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
             vc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
@@ -631,26 +679,101 @@ def _read_counts():
     return {n: fn.launch_count for n, fn in _lm_kernels().items()}
 
 
+def lm_launches(cfg):
+    """(attention layers, rmsnorm launches a forward) of a config: one
+    flash_attention a prefill and one decode_attention a step for each
+    attention layer; two norms for each attention or RG-LRU block, one for
+    each SSM block, one final norm (``_qk_norm`` and mamba's gated norm
+    stay plain, as in the reference)."""
+    kinds = cfg.layer_kinds()
+    return (sum(k == "attn" for k in kinds),
+            sum(1 if k == "ssm" else 2 for k in kinds) + 1)
+
+
+class RouteLog:
+    """Records every MoE routing decision while active: it wraps
+    ``repro_torch.models.moe._route`` and keeps, for each call (one MoE
+    layer's tokens), each token's expert set and which of its copies the
+    batched implementation keeps under its per-expert capacity ``cap_e``.
+    A token's decision is that pair."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe._route
+
+        def route(cfg, router_w, x2d):
+            probs, gate, idx, aux = self._orig(cfg, router_w, x2d)
+            T, k = idx.shape
+            E = cfg.moe.num_experts
+            cap_e = moe._capacity(T * k, E, cfg.moe.capacity_factor)
+            flat = idx.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            counts = torch.bincount(flat, minlength=E)
+            starts = torch.cumsum(counts, 0) - counts
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(T * k, device=idx.device)
+            kept = (rank - starts[flat]).reshape(T, k) < cap_e
+            srt, perm = torch.sort(idx, dim=1)
+            self.calls.append((srt, torch.gather(kept, 1, perm)))
+            return probs, gate, idx, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._orig
+
+
+def _route_diffs(a: RouteLog, b: RouteLog, B: int):
+    """Per MoE call, the tokens whose decisions differ between two runs;
+    the batch rows that saw any such token (a prefill call's T = B * S
+    tokens are row-major, a decode call's T = B); decisions in all."""
+    check(len(a.calls) == len(b.calls), f"routing calls {len(a.calls)} != "
+          f"{len(b.calls)}")
+    per_call, bad_rows, total = [], set(), 0
+    for (ia, ka), (ib, kb) in zip(a.calls, b.calls):
+        T = ia.shape[0]
+        differ = ((ia != ib) | (ka != kb)).any(dim=1)
+        per_call.append(int(differ.sum()))
+        total += T
+        for t in differ.nonzero().flatten().tolist():
+            bad_rows.add(t // (T // B))
+    return per_call, bad_rows, total
+
+
 @torch.inference_mode()
 def lm_teacher_forced(cfg, params, tokens, steps: int, label: str):
     """Prefill ``tokens[:, :-steps]`` and feed the last ``steps`` tokens
     one decode step at a time, through the kernel route and then the plain
-    route on the same params; every step's logits are held together."""
+    route on the same params; every step's logits are held together.
+
+    An MoE config logs its routing decisions on both routes (``RouteLog``):
+    a 1e-6 difference between the kernel and the plain version can swap
+    two experts on a near-tie, which moves that row's logits far more than
+    the tolerance without any kernel fault. So the check counts the
+    decisions that differ, per layer, fails if more than
+    ``ROUTE_DIFF_MAX`` of them do, and holds the logits of the rows whose
+    decisions agreed in every layer, failing if no row is left."""
     from repro_torch.models import build_model
     P = tokens.shape[1] - steps
-    L = cfg.num_layers
-    out = {}
+    B = tokens.shape[0]
+    out, routes = {}, {}
     for use in (True, False):
         m = build_model(cfg, attn_impl="chunked", use_kernels=use)
         if use:
             _zero_counts()
+        routes[use] = RouteLog()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, st = m.prefill(params, tokens[:, :P], max_len=P + steps)
-        logits = [lg]
-        for t in range(P, P + steps):
-            lg, st = m.decode_step(params, st, tokens[:, t:t + 1])
-            logits.append(lg)
+        with routes[use] if cfg.is_moe else contextlib.nullcontext():
+            lg, st = m.prefill(params, tokens[:, :P], max_len=P + steps)
+            logits = [lg]
+            for t in range(P, P + steps):
+                lg, st = m.decode_step(params, st, tokens[:, t:t + 1])
+                logits.append(lg)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = _read_counts() if use else None
@@ -658,14 +781,31 @@ def lm_teacher_forced(cfg, params, tokens, steps: int, label: str):
         del st
     got, k_s, counts = out[True]
     want, p_s, _ = out[False]
-    B = tokens.shape[0]
+    rows = list(range(B))
+    route_note = ""
+    if cfg.is_moe:
+        per_call, bad, total = _route_diffs(routes[True], routes[False], B)
+        n_moe = sum(k == "attn" for k in cfg.layer_kinds())
+        per_layer = [sum(per_call[i::n_moe]) for i in range(n_moe)]
+        share = sum(per_call) / total
+        rows = [b for b in rows if b not in bad]
+        route_note = (f"; routing decisions differing {sum(per_call)} of "
+                      f"{total} ({share:.2e}), per layer {per_layer}, rows "
+                      f"held {rows} of {B}")
+        log(f"lm {label}: routing decisions that differ between the routes, "
+            f"per layer: {per_layer} of {total // n_moe} a layer")
+        check(share <= ROUTE_DIFF_MAX, f"{label}: {share:.2e} of the routing "
+              f"decisions differ (> {ROUTE_DIFF_MAX})")
+        check(bool(rows), f"{label}: every row's routing differs somewhere")
     diffs = []
     for a, b in zip(got, want):
         check(a.shape == (B, 1, cfg.padded_vocab) and bool(
             torch.isfinite(a).all()), f"{label}: logits {a.shape} not finite")
-        diffs.append(float((a.float() - b.float()).abs().max()))
-    want_counts = {"flash_attention": L, "decode_attention": L * steps,
-                   "rmsnorm": (2 * L + 1) * (steps + 1)}
+        diffs.append(float((a[rows].float() - b[rows].float()).abs().max()))
+    n_attn, norms = lm_launches(cfg)
+    want_counts = {"flash_attention": n_attn,
+                   "decode_attention": n_attn * steps,
+                   "rmsnorm": norms * (steps + 1)}
     check(counts == want_counts, f"{label}: launches {counts} != "
           f"{want_counts}")
     check(max(diffs) <= LM_F32_ATOL, f"{label}: logits differ from the "
@@ -673,21 +813,28 @@ def lm_teacher_forced(cfg, params, tokens, steps: int, label: str):
     log(f"lm {label}: prefill {P} + {steps} decode steps, B={B}: kernel "
         f"route {k_s:.3f} s, plain route {p_s:.3f} s; launches {counts}; "
         f"max |logit - plain| prefill {diffs[0]:.3e}, decode steps "
-        f"{max(diffs[1:]):.3e} (atol {LM_F32_ATOL})")
+        f"{max(diffs[1:]):.3e} (atol {LM_F32_ATOL}){route_note}")
     return {"prefill_err": diffs[0], "decode_err": max(diffs[1:]),
-            "launches": counts, "kernel_s": k_s, "plain_s": p_s}
+            "launches": counts, "kernel_s": k_s, "plain_s": p_s,
+            "rows_held": len(rows)}
 
 
-def _kernel_us(prof) -> dict:
-    """Device µs by kernel name in a ``torch.profiler`` trace. Kernel
-    events only: a CPU op's self device time is its kernels' time again,
-    and counting both would count each kernel twice."""
+def _kernel_events(prof) -> dict:
+    """(device µs, event count) by kernel name in a ``torch.profiler``
+    trace. Kernel events only: a CPU op's self device time is its kernels'
+    time again, and counting both would count each kernel twice."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+            us, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (us + e.self_device_time_total, n + e.count)
     return by_name
+
+
+def _kernel_us(prof) -> dict:
+    """Device µs by kernel name in a ``torch.profiler`` trace."""
+    return {k: us for k, (us, _) in _kernel_events(prof).items()}
 
 
 @torch.inference_mode()
@@ -811,6 +958,116 @@ def lm_path(args, dev):
     return res
 
 
+# -- phase 7b: the MoE, SSM and hybrid families -----------------------------
+
+def _want_counts(cfg, chunks: int, gen_tokens: int) -> dict:
+    n_attn, norms = lm_launches(cfg)
+    return {"flash_attention": n_attn * chunks,
+            "decode_attention": n_attn * (gen_tokens - 1) * chunks,
+            "rmsnorm": norms * gen_tokens * chunks}
+
+
+def family_serve(cfg, dev, seed: int, rng):
+    """The bf16 config through ``ServingEngine.generate``: SERVE_SLOTS slots
+    x SERVE_PROMPT-token prompts -> SERVE_GEN tokens after a warm-up, timed,
+    launch counts held to the config's layers, then one decode profile."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    model = build_model(cfg, attn_impl="chunked")
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    engine = serve.ServingEngine(model, params,
+                                 max_len=SERVE_PROMPT + SERVE_GEN,
+                                 batch_slots=SERVE_SLOTS, device=dev)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (SERVE_SLOTS, SERVE_PROMPT)).astype(np.int32)
+    engine.generate(prompts[:, :64], 2)          # warm-up
+    engine.stats = dict.fromkeys(engine.stats, 0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = engine.generate(prompts, SERVE_GEN)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = engine.stats
+    want = _want_counts(cfg, 1, SERVE_GEN)
+    check(out.shape == (SERVE_SLOTS, SERVE_GEN) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          f"{cfg.arch_id} generate gave {out.shape}")
+    check(counts == want, f"{cfg.arch_id} generate launches {counts} != "
+          f"{want}")
+    tps = st["decode_tokens"] / st["decode_s"]
+    log(f"lm serve {cfg.arch_id} bf16: slots={SERVE_SLOTS} prompt="
+        f"{SERVE_PROMPT} gen={SERVE_GEN}: prefill {st['prefill_s']:.4f} s "
+        f"({st['prefill_tokens'] / st['prefill_s']:.1f} tok/s), decode "
+        f"{st['decode_s']:.4f} s ({tps:.1f} tok/s); launches {counts}; "
+        f"peak memory {peak:.2f} GiB")
+    prof = profile_decode(engine, prompts, 4)
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+            "decode_tok_s": tps, "peak_gib": peak, "launches": counts,
+            "profile": prof}
+
+
+def lm_families(args, dev):
+    """olmoe-1b-7b, mamba2-370m and recurrentgemma-9b at full width and
+    depth (random weights from ``--seed``), each freed before the next: a
+    float32 copy's kernel route held against its plain route at
+    LM_F32_ATOL (olmoe under the routing rule of ``lm_teacher_forced``),
+    then the bf16 config served and timed; gemma-2b's f32 check (dense,
+    head dim 256); then the launcher's ``main`` for olmoe-1b-7b as a user
+    runs it (1 slot from the cost model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(args.seed + 1)
+    res = {}
+    runs = [(a, b, p) for a, (b, p) in FAMILIES.items()] + [D256_DENSE]
+    for arch, B, P in runs:
+        cfg = get_config(arch)
+        n_attn, norms = lm_launches(cfg)
+        check((n_attn, n_attn, norms) == FAMILY_LAUNCHES[arch],
+              f"{arch}: {n_attn} attention layers, {norms} norms a forward, "
+              f"not {FAMILY_LAUNCHES[arch]}")
+        log(f"lm config {arch}: family={cfg.family} L={cfg.num_layers} "
+            f"d={cfg.d_model} Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} "
+            f"hd={cfg.resolved_head_dim} kinds={sorted(set(cfg.layer_kinds()))} "
+            f"window={cfg.local_attn_window if cfg.family == 'hybrid' else cfg.sliding_window} "
+            f"params={cfg.param_count()}")
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        params = build_model(cfg32).init(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, P + FAMILY_STEPS))).to(dev)
+        res[arch] = {"f32": lm_teacher_forced(
+            cfg32, params, toks, FAMILY_STEPS, f"{arch} f32 B={B} prompt={P}")}
+        del params, toks
+        torch.cuda.empty_cache()
+        if arch in FAMILIES:
+            res[arch]["serve"] = family_serve(cfg, dev, args.seed, rng)
+
+    cfg = get_config(CLI_ARCH)
+    slots = serve.serving_slots(cfg)
+    check(slots == 1, f"{CLI_ARCH}: the cost model gave {slots} slots, not 1")
+    argv = ["--arch", CLI_ARCH, "--requests", str(CLI_REQUESTS),
+            "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = serve.main(argv)
+    cli_s = time.perf_counter() - t0
+    counts = _read_counts()
+    want = _want_counts(cfg, CLI_REQUESTS // slots, SERVE_GEN)
+    check(rc == 0, f"repro_torch.launch.serve.main exited {rc}")
+    check(counts == want, f"serve.main {CLI_ARCH} launches {counts} != "
+          f"{want}")
+    log(f"lm serve cli: python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{cli_s:.3f} s including weight init; slots {slots}; launches "
+        f"{counts}")
+    res["cli"] = {"arch": CLI_ARCH, "slots": slots, "s": cli_s,
+                  "launches": counts}
+    torch.cuda.empty_cache()
+    return res
+
+
 # -- phase 8: timing --------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -827,19 +1084,41 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """The card's ms a call: the kernel time of ``reps`` calls under
-    ``torch.profiler``, over ``reps``. For a call of a few µs, CUDA events
-    over back-to-back calls read the host's enqueue time where that is
-    the longer; this reads only the kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps: int):
+    """(the card's ms a call, kernel events a call): the kernel time of
+    ``reps`` calls under ``torch.profiler``, over ``reps``. For a call of a
+    few µs, CUDA events over back-to-back calls read the host's enqueue
+    time where that is the longer; this reads only the kernels.
+
+    The profiler can lose kernel events, and a sum over a short count reads
+    below the truth. So the calls are traced in the active step of a
+    schedule, after a step that is traced and thrown away, with a pause
+    for the trace's last records before it stops, and every kernel's event
+    count must be a whole, nonzero multiple of ``reps``: a trace that
+    breaks this is taken once more, and a second one raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_kernel_us(prof).values()) / reps / 1e3
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     acc_events=True) as prof:
+            for _ in range(2):          # the warm-up step, the traced one
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)        # let the last records land
+                prof.step()
+        ev = _kernel_events(prof)
+        short = {k[:60]: n for k, (_, n) in ev.items() if n % reps}
+        if ev and not short:
+            return (sum(us for us, _ in ev.values()) / reps / 1e3,
+                    sum(n for _, n in ev.values()) // reps)
+        log(f"device_ms: trace {attempt} of {reps} calls recorded kernel "
+            f"events {short or 'none'}, not whole multiples of {reps}")
+    raise AssertionError(f"device_ms: the profiler lost kernel events twice "
+                         f"over {reps} calls: {short or 'none recorded'}")
 
 
 def bound_ms(n: int, d: int, k: int):
@@ -892,19 +1171,21 @@ def _timed(name, kernel, plain, library, reps, bound, shape, atol,
         "library_causal_ms": time_ms(library_causal, reps)}
     # the card's own time of the kernel and of the library calls
     dev_reps = min(reps, 50)
-    extra["device_ms"] = device_ms(kernel, dev_reps)
+    extra["device_ms"], extra["device_events_per_call"] = device_ms(
+        kernel, dev_reps)
     if library is not None:
-        extra["library_device_ms"] = device_ms(library, dev_reps)
+        extra["library_device_ms"], _ = device_ms(library, dev_reps)
     if library_causal is not None:
-        extra["library_causal_device_ms"] = device_ms(library_causal,
-                                                      dev_reps)
+        extra["library_causal_device_ms"], _ = device_ms(library_causal,
+                                                         dev_reps)
     b, by = bound
     extra["bound_share"] = b / extra["device_ms"]
     log(f"time {name} {shape}: max err {err:.2e} ({beyond:.2e} beyond one "
         f"ulp); kernel {k1:.5f}/{k2:.5f} ms, plain "
         f"{p1:.5f}/{p2:.5f} ms, library "
         f"{'none' if lib is None else f'{lib:.5f} ms'}"
-        + "".join(f", {key} {v:.5f}" for key, v in extra.items())
+        + "".join(f", {key} {v:.5f}" if isinstance(v, float)
+                  else f", {key} {v}" for key, v in extra.items())
         + f", bound {b:.6f} ms ({by})")
     return {"shape": shape, "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "library_ms": lib, **extra, "bound_ms": b, "bound_by": by}
@@ -959,7 +1240,42 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
                    4.0 * B * Hq * hd * pairs, BF16_FLOPS_PER_S),
             [B, Hq, Hkv, S, hd], ATTN_BF16_TOL, library_causal=causal)
         del q, k, v, band
+    # recurrentgemma-9b's served prefill: head dim 256, MQA, window 2048
+    Hq2, Hkv2, hd2, W2 = 16, 1, 256, 2048
+    q = randn((slots, prompt, Hq2, hd2)).transpose(1, 2)
+    k = randn((slots, prompt, Hkv2, hd2)).transpose(1, 2)
+    v = randn((slots, prompt, Hkv2, hd2)).transpose(1, 2)
+    pos = torch.arange(prompt, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W2)
+    res["flash_attention_d256"] = _timed(
+        "flash_attention",
+        lambda: flash_attention(q, k, v, causal=True, window=W2),
+        lambda: flash_attention_ref(q, k, v, causal=True, window=W2),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                               enable_gqa=True),
+        20,
+        _bound(2.0 * slots * prompt * hd2 * (2 * Hq2 + 2 * Hkv2),
+               4.0 * slots * Hq2 * hd2 * float(band.sum()), BF16_FLOPS_PER_S),
+        [slots, Hq2, Hkv2, prompt, hd2], ATTN_BF16_TOL,
+        library_causal=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    del q, k, v, band
     length = prompt + gen_tokens // 2
+    q = randn((slots, Hq2, hd2))
+    kc = randn((slots, W2, Hkv2, hd2)).transpose(1, 2)
+    vc = randn((slots, W2, Hkv2, hd2)).transpose(1, 2)
+    res["decode_attention_d256"] = _timed(
+        "decode_attention", lambda: decode_attention(q, kc, vc, length),
+        lambda: decode_attention_ref(q, kc, vc, length),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc[:, :, :length], vc[:, :, :length],
+            enable_gqa=True),
+        200,
+        _bound(2.0 * (2 * slots * Hkv2 * length * hd2
+                      + 2 * slots * Hq2 * hd2),
+               4.0 * slots * Hq2 * length * hd2, BF16_FLOPS_PER_S),
+        [slots, Hq2, Hkv2, W2, hd2, length], ATTN_BF16_TOL)
+    del q, kc, vc
     q = randn((slots, Hq, hd))
     kc = randn((slots, W, Hkv, hd)).transpose(1, 2)
     vc = randn((slots, W, Hkv, hd)).transpose(1, 2)
@@ -1011,6 +1327,7 @@ def main() -> int:
     quickstart()
     sp = served_path(mp.pop("world"), fused_embed, mp["model"])
     lm = lm_path(args, dev)
+    fam = lm_families(args, dev)
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
@@ -1027,6 +1344,9 @@ def main() -> int:
         "at_1_row": tm[(1, 16, 8)],
     }]
 
+    def fam_launches(name):
+        return {a: fam[a]["serve"]["launches"][name] for a in FAMILIES}
+
     def lm_entry(name, replaces, timing, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1039,13 +1359,18 @@ def main() -> int:
         lm_entry("rmsnorm", "src/repro/kernels/rmsnorm.py:32",
                  lt["rmsnorm_decode"], design=RMSNORM_DESIGN,
                  at_prefill=lt["rmsnorm_prefill"],
-                 at_wide=lt["rmsnorm_wide"]),
+                 at_wide=lt["rmsnorm_wide"],
+                 launches_families=fam_launches("rmsnorm")),
         lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
                  lt["flash_attention_prefill"], design=FLASH_DESIGN,
-                 at_8192=lt["flash_attention_long"]),
+                 at_8192=lt["flash_attention_long"],
+                 at_d256=lt["flash_attention_d256"],
+                 launches_families=fam_launches("flash_attention")),
         lm_entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:72",
-                 lt["decode_attention"], design=DECODE_DESIGN),
+                 lt["decode_attention"], design=DECODE_DESIGN,
+                 at_d256=lt["decode_attention_d256"],
+                 launches_families=fam_launches("decode_attention")),
     ]
     log(f"main path: model={mp['model']} stage_count={mp['stage_count']} "
         f"cold={mp['cold_s']:.4f} s warm={mp['warm_s']:.4f} s "
@@ -1061,6 +1386,16 @@ def main() -> int:
         "max |logit - plain| (prefill/decode): " + ", ".join(
             f"B={b} prompt={p}: {r['prefill_err']:.3e}/{r['decode_err']:.3e}"
             for (b, p), r in lm["f32"].items()))
+    for arch in FAMILIES:
+        f, sv_f = fam[arch]["f32"], fam[arch]["serve"]
+        log(f"lm {arch}: serve bf16 prefill {sv_f['prefill_s']:.4f} s, "
+            f"decode {sv_f['decode_tok_s']:.1f} tok/s, peak "
+            f"{sv_f['peak_gib']:.2f} GiB, launches {sv_f['launches']}; f32 "
+            f"max |logit - plain| {f['prefill_err']:.3e}/"
+            f"{f['decode_err']:.3e} on {f['rows_held']} rows")
+    g = fam[D256_DENSE[0]]["f32"]
+    log(f"lm {D256_DENSE[0]} f32 max |logit - plain| {g['prefill_err']:.3e}/"
+        f"{g['decode_err']:.3e}; launcher {fam['cli']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -192,6 +192,18 @@ class _LinearHead:
 _FAST_CALIB_CACHE: Dict[Tuple[str, Any], HardwareProfile] = {}
 _FAST_CALIB_LOCK = threading.Lock()
 _FAST_CALIB_ROWS = (64, 512)
+# The card's probe sizes. At 64 and 512 rows a call on an H100 is all
+# launch and the two take the same time, so the slope clamped at 1e-12 s
+# a row; 2^14 and 2^17 rows (the order of a served request) resolve it
+# (``scripts/torch_calib_probe.py``; PERF.md §5).
+_CUDA_CALIB_ROWS = (1 << 14, 1 << 17)
+
+
+def _calib_rows(device: str) -> Tuple[int, int]:
+    """Probe row counts of the fast calibration for a device annotation:
+    ``"cuda"`` gets sizes its per-row cost shows at, every other device
+    the small ones."""
+    return _CUDA_CALIB_ROWS if device == "cuda" else _FAST_CALIB_ROWS
 
 
 def _fast_profile(backend: ExecutionBackend, device: str,
@@ -202,9 +214,10 @@ def _fast_profile(backend: ExecutionBackend, device: str,
     backend's stage/compile counters stay untouched (its kernel launches
     do count in ``fused_embed.launch_count``)."""
     if isinstance(backend, TorchBackend):
-        # one profile per torch device: a CUDA card and the CPU are
-        # different machines to the cost model
-        key = ("torch", str(backend.device))
+        # one profile per torch device and probe size: a CUDA card and the
+        # CPU are different machines to the cost model, and a profile
+        # probed at the small sizes cannot serve "cuda"
+        key = ("torch", str(backend.device), _calib_rows(device))
         probe_fn = lambda: TorchBackend(  # noqa: E731
             device=str(backend.device))
     elif isinstance(backend, NumpyBackend):
@@ -223,7 +236,7 @@ def _fast_profile(backend: ExecutionBackend, device: str,
             if prof is not None:
                 _FAST_CALIB_CACHE[key] = prof
         if prof is None:
-            prof = calibrate(probe_fn(), device, rows=_FAST_CALIB_ROWS,
+            prof = calibrate(probe_fn(), device, rows=_calib_rows(device),
                              repeats=1)
             _FAST_CALIB_CACHE[key] = prof
             if memo_path:

@@ -49,7 +49,12 @@
 // float32 (decode_fma_kernel), for the correctness checks: a block-wide
 // ring of three 32-position stages; warp w scores heads w, w + 4, ...
 // (one position a lane, q scaled in f32), then every thread accumulates
-// pairs of output columns of the G * D group with f32 FMA. G * D <= 2048.
+// up to EPT = 16 pairs of output columns of the G * D group with f32 FMA
+// (recurrentgemma's G 16 x D 256 takes all 16, and 213 KB of shared
+// memory a block).
+//
+// G * D <= 4096 in both dtypes. The bf16 instance takes G 16 at D 256 as
+// it is: G 16 is the m16 rows it already scores, and KS 16 its widest.
 //
 // A split writes its partial (acc[D], m, l) in f32, m in log2 units;
 // decode_combine_kernel merges a row's partials and writes the output in
@@ -70,7 +75,8 @@ constexpr int TP = 32;          // cache positions per stage (one a lane)
 constexpr int STAGES = 3;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int EPT = 8;          // column pairs per thread: G * D <= 2048
+constexpr int MAX_GROUP_WIDTH = 4096;   // G * D
+constexpr int EPT = MAX_GROUP_WIDTH / (2 * THREADS);  // column pairs a thread
 
 struct Strides {
   long long kb, kh, ks, vb, vh, vs;
@@ -585,7 +591,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
 // length_all for every row. The cache is split into n_split chunks of
 // `chunk` positions (a multiple of 64), n_split <= 1024; with n_split > 1,
 // part is the f32 scratch [B, Hq, n_split, D + 2]. Needs D % 8 == 0,
-// (hq / hkv) * d <= 2048, D <= 256, and q and cache pointers and strides 16-byte aligned (the wrapper checks). bf16:
+// (hq / hkv) * d <= 4096, D <= 256, and q and cache pointers and strides
+// 16-byte aligned (the wrapper checks). bf16:
 // 0 for float32 q / caches / output, 1 for bfloat16. Launches the split
 // kernel and, with more than one split, the combine on the same stream;
 // returns the first cudaGetLastError() that is not cudaSuccess.
@@ -595,7 +602,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int b, int hq, int hkv, int s_len, int d,
                                 int chunk, int n_split, float scale,
                                 int bf16, void* stream) {
-  if ((hq / hkv) * d > 2 * EPT * THREADS || d % 8 || chunk % 64
+  if ((hq / hkv) * d > MAX_GROUP_WIDTH || d > 256 || d % 8 || chunk % 64
       || n_split < 1 || n_split > MAX_SPLITS
       || (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -11,7 +11,7 @@
 // given by its (batch, head, position) strides in elements with the last
 // dim contiguous, so the model passes its [B, S, H, D] activations as
 // strided views and no transpose is copied. Query and key positions both
-// start at 0. Any S: the ragged edge is masked, not padded. D <= 128.
+// start at 0. Any S: the ragged edge is masked, not padded. D <= 256.
 //
 // What bounds it on an H100: at the serving prefill (B 32, S 512, D 80)
 // the bytes (q, k, v read once, o written once: 0.063 ms at 3.35 TB/s)
@@ -25,7 +25,10 @@
 // bfloat16 (flash_mma_kernel), FlashAttention-2 on mma.sync: one block of
 // 4 warps per (batch, q head, 64-row q tile), each warp owning 16 q rows;
 // the grid walks q tiles longest first. The q tile is copied once with
-// cp.async and held in registers as ldmatrix A fragments, unscaled. K and
+// cp.async and, for D <= 128, held in registers as ldmatrix A fragments,
+// unscaled. Above that (D 256: recurrentgemma, gemma) the O accumulators
+// alone take 128 f32 registers a thread, so the fragments are read again
+// from shared memory at each k16 step instead of spilling. K and
 // V tiles of 64 positions are staged as bf16 by 16-byte cp.async copies
 // into two stages, the next tile in flight while this one is computed;
 // rows past the end are zero-filled, not read. Shared rows are D rounded up
@@ -278,9 +281,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int chunks = d / 8;
 
   // columns [d, DP) of every tile: zero, never written by the copies
-  if (d < DP)
-    for (int r = tid; r < BQ + 4 * BK; r += MMA_THREADS)
-      *reinterpret_cast<uint4*>(qs + r * LD + d) = make_uint4(0, 0, 0, 0);
+  const int pad = (DP - d) / 8;
+  for (int e = tid; e < (BQ + 4 * BK) * pad; e += MMA_THREADS)
+    *reinterpret_cast<uint4*>(qs + (e / pad) * LD + d + (e % pad) * 8) =
+        make_uint4(0, 0, 0, 0);
 
   const int q_last = min(q0 + BQ, sq) - 1;
   const int k_hi = causal ? min(q_last, sk - 1) : sk - 1;
@@ -295,7 +299,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   attn::cp_async_commit();
 
-  uint32_t qf[KS][4];
+  // Q's A fragments: in registers up to KS 8, else from shared memory
+  constexpr bool QREG = KS <= 8;
+  uint32_t qf[QREG ? KS : 1][4];
   float acc[2 * KS][4];
 #pragma unroll
   for (int n = 0; n < 2 * KS; ++n)
@@ -315,11 +321,13 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     attn::cp_async_commit();
     attn::cp_async_wait<1>();     // tile i (and q) landed
     __syncthreads();
-    if (i == 0) {
+    if constexpr (QREG) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        attn::ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD
-                                      + kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          attn::ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD
+                                        + kk * 16 + (lane / 16) * 8);
+      }
     }
     const bf16* kt = ks + (i & 1) * BK * LD;
     const bf16* vt = vs + (i & 1) * BK * LD;
@@ -332,13 +340,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t* qa = qf[QREG ? kk : 0];
+      if constexpr (!QREG)
+        attn::ldmatrix_x4(qf[0], qs + (warp * 16 + lane % 16) * LD + kk * 16
+                                     + (lane / 16) * 8);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t kb[4];
         attn::ldmatrix_x4(kb, kt + (jp * 16 + lane % 8 + (lane / 16) * 8) * LD
                                   + kk * 16 + ((lane / 8) % 2) * 8);
-        attn::mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
-        attn::mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+        attn::mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
+        attn::mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -482,6 +494,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
       case 6: return launch_mma<6>(FLASH_ARGS);
       case 7: return launch_mma<7>(FLASH_ARGS);
       case 8: return launch_mma<8>(FLASH_ARGS);
+      case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+        return launch_mma<16>(FLASH_ARGS);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -494,6 +508,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
     case 6: return launch_fma<6>(FLASH_ARGS);
     case 7: return launch_fma<7>(FLASH_ARGS);
     case 8: return launch_fma<8>(FLASH_ARGS);
+    case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+      return launch_fma<16>(FLASH_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

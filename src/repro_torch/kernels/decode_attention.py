@@ -37,7 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 MAX_HEAD_DIM = 256
-MAX_GROUP_WIDTH = 2048          # (Hq / Hkv) * D accumulators per block
+MAX_GROUP_WIDTH = 4096          # (Hq / Hkv) * D accumulators per block
 _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 SPLIT_QUANTUM = 64              # positions: a chunk is a multiple of this

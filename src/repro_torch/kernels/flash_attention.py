@@ -7,7 +7,8 @@ C++ for Hopper (``csrc/flash_attention.cu``, built by
 :mod:`repro_torch.kernels._build`): one block per (batch, q head, 64-row q
 tile) loops over the kv tiles its rows can reach, and any S is taken.
 bfloat16 runs on the tensor cores (``mma.sync`` with ``cp.async``-staged
-K/V tiles); float32 runs on f32 FMA, which keeps full f32 precision.
+K/V tiles); float32 runs on f32 FMA, which keeps full f32 precision. Any head dim up
+to 256 (gemma-2b's and recurrentgemma-9b's) is taken.
 
 The bfloat16 instance copies 16-byte chunks, so it needs D % 8 == 0 and
 every pointer and (batch, head, position) stride 16-byte aligned; the
@@ -34,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL = _build.Kernel("flash_attention", "flash_attention",

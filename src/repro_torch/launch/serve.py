@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import build_model
+from repro_torch.models.transformer import ENC_DEC_NOT_PORTED
 from repro_torch.pipeline import OpProfile, choose_batch_size
 from repro_torch.pipeline.backend import resolve_device
 from repro_torch.training import make_serve_step
@@ -119,7 +120,7 @@ def main(argv=None) -> int:
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encoder_decoder:
-        raise SystemExit("enc-dec archs are not ported yet")
+        raise SystemExit(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
     device = resolve_device(args.device)
     model = build_model(cfg, attn_impl="naive" if args.smoke else "chunked")
     params = model.init(torch.Generator(device=device).manual_seed(0))

@@ -1,6 +1,7 @@
 """Model construction and random batches.
 
-Port of ``src/repro/models/api.py`` for the decoder-only LM. Tokens are
+Port of ``src/repro/models/api.py`` for the decoder-only LM (every family
+but enc-dec). Tokens are
 drawn by numpy from a seed (``jax.random`` has no counterpart), so a test
 can hand the same batch to both packages.
 """
@@ -12,15 +13,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import ENC_DEC_NOT_PORTED, LM
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "chunked", *,
                 use_kernels: bool = True) -> LM:
+    """The decoder-only LM of every family but enc-dec (dense, moe, ssm,
+    hybrid), which raises ``NotImplementedError``."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder models are still to port "
-            "(ROADMAP Queue 1, item 2)")
+        raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
     return LM(cfg, attn_impl=attn_impl, use_kernels=use_kernels)
 
 
@@ -31,9 +32,7 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
     """Random token batch ``{"tokens": [B, S] int64}`` from
     ``numpy.random.default_rng(seed)``, on ``device`` (default CPU)."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder batches are still to port "
-            "(ROADMAP Queue 1, item 2)")
+        raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
     B = batch_override or shape.global_batch
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, shape.seq_len))

@@ -1,16 +1,22 @@
-"""Decoder-only LM, dense path.
+"""Decoder-only LM assembling the block zoo (attn / MoE / SSM / RG-LRU).
 
-Port of ``src/repro/models/transformer.py`` for the dense families (every
-block attention + gated MLP: llama3, gemma, granite, h2o-danube,
-chameleon). The reference's ``lax.scan`` over the stacked layer dim is a
-Python loop that indexes the ``[L, ...]`` params; remat does not apply
-(no training here). MoE, SSM and hybrid blocks raise ``NotImplementedError``
-(ROADMAP Queue 1, item 2).
+Port of ``src/repro/models/transformer.py``. One class serves the dense,
+moe, ssm and hybrid families. The reference's ``lax.scan`` over the
+stacked layer dim is a Python loop that indexes the ``[L, ...]`` params;
+a hybrid walks its pattern *cycles* (params ``cycles/slot{i}`` stacked
+``[nc, ...]``) and then the unrolled remainder (``rest{i}``), the
+reference's tree exactly, so :func:`repro_torch.convert.lm_params_from_numpy`
+carries a reference param tree across unchanged. Remat does not apply (no
+training here). Encoder-decoder models are a different class, still to
+port (ROADMAP Queue 1, item 1).
 
-Decode updates the KV cache in place: :meth:`LM.decode_step` writes the new
-token's key and value into ``state.kv`` and returns a state with the index
-advanced, where the reference returns updated copies
-(``dynamic_update_slice``). The state passed in must not be reused.
+Decode updates the caches in place: :meth:`LM.decode_step` writes the new
+token's key and value into ``state.kv`` and each recurrent layer's conv
+window and state into ``state.conv`` / ``state.rec``, and returns a state
+with the index advanced, where the reference returns updated copies. The
+state passed in must not be reused. The recurrent stacks keep the
+reference's flat layer order (cycle0.slot0, cycle0.slot1, cycle1.slot0,
+..., then the remainder), so a test compares them element for element.
 
 ``use_kernels=False`` is the plain route: every kernel call goes to its
 plain PyTorch version on any device, which ``chip_smoke.py`` holds the
@@ -19,25 +25,28 @@ kernel route against on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.spec import init_params, stack_tree
 
-_NOT_PORTED = ("the port's LM runs the dense family only; MoE, SSM and "
-               "hybrid blocks are still to port (ROADMAP Queue 1, "
-               "item 2)")
+ENC_DEC_NOT_PORTED = ("encoder-decoder models are still to port (ROADMAP "
+                      "Queue 1, item 1)")
 
 
 @dataclass
 class DecodeState:
-    """Decode cache of the dense path: the stacked attention KV cache and
-    the next absolute position. (The reference's ``conv`` / ``rec``
-    recurrent states come with the SSM and hybrid families.)"""
-    kv: attn.KVCache
+    """Per-arch decode cache: the attention layers' stacked KV cache, the
+    recurrent layers' stacked conv windows and states (SSM state or RG-LRU
+    hidden), each ``None`` where the arch has no such layer, and the next
+    absolute position."""
+    kv: Optional[attn.KVCache]
+    conv: Optional[torch.Tensor]
+    rec: Optional[torch.Tensor]
     index: int
 
 
@@ -53,16 +62,12 @@ def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
 
 
 class LM:
-    """Decoder-only language model (dense path)."""
+    """Unified decoder-only language model."""
 
     def __init__(self, cfg, attn_impl: str = "chunked", *,
                  use_kernels: bool = True):
         if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "encoder-decoder models are still to port (ROADMAP Queue 1, "
-                "item 2)")
-        if cfg.is_moe or cfg.block_pattern or cfg.family == "ssm":
-            raise NotImplementedError(f"{cfg.arch_id}: {_NOT_PORTED}")
+            raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.use_kernels = use_kernels
@@ -71,59 +76,146 @@ class LM:
     # ------------------------------------------------------------------
     # Parameter specs
     # ------------------------------------------------------------------
-    def _block_specs(self) -> dict:
+    def _block_specs(self, kind: str) -> dict:
         cfg = self.cfg
-        return {"norm1": L.norm_spec(cfg, cfg.d_model),
-                "attn": attn.attn_specs(cfg),
-                "norm2": L.norm_spec(cfg, cfg.d_model),
-                "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff)}
+        s: Dict[str, Any] = {"norm1": L.norm_spec(cfg, cfg.d_model)}
+        if kind == "attn":
+            s["attn"] = attn.attn_specs(cfg)
+            s["norm2"] = L.norm_spec(cfg, cfg.d_model)
+            if cfg.is_moe:
+                s["moe"] = moe.moe_specs(cfg)
+            else:
+                s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
+        elif kind == "ssm":
+            s["ssm"] = mamba2.mamba_specs(cfg)
+        elif kind == "rglru":
+            s["rglru"] = rglru.rglru_specs(cfg)
+            s["norm2"] = L.norm_spec(cfg, cfg.d_model)
+            s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
+        else:
+            raise ValueError(kind)
+        return s
 
     def specs(self) -> dict:
         cfg = self.cfg
-        return {"embed": L.embed_specs(cfg),
-                "final_norm": L.norm_spec(cfg, cfg.d_model),
-                "layers": stack_tree(self._block_specs(), cfg.num_layers)}
+        out: Dict[str, Any] = {"embed": L.embed_specs(cfg),
+                               "final_norm": L.norm_spec(cfg, cfg.d_model)}
+        if cfg.block_pattern:
+            pat = cfg.block_pattern
+            nc, rest = divmod(cfg.num_layers, len(pat))
+            out["cycles"] = {f"slot{i}": stack_tree(self._block_specs(k), nc)
+                             for i, k in enumerate(pat)}
+            for i in range(rest):
+                out[f"rest{i}"] = self._block_specs(pat[i])
+        else:
+            out["layers"] = stack_tree(self._block_specs(self.kinds[0]),
+                                       cfg.num_layers)
+        return out
 
     def init(self, gen: torch.Generator, device=None):
         """Random params from ``gen`` on ``device`` (default: the
         generator's device)."""
         return init_params(self.specs(), gen, self.cfg.param_dtype, device)
 
+    def _layers(self, params) -> List[Tuple[str, dict]]:
+        """(kind, params) of every layer in order: for a hybrid, cycle by
+        cycle through the pattern's slots, then the remainder."""
+        cfg = self.cfg
+        if not cfg.block_pattern:
+            return [(self.kinds[0], layer_params(params["layers"], i))
+                    for i in range(cfg.num_layers)]
+        pat = cfg.block_pattern
+        nc = cfg.num_layers // len(pat)
+        out = [(k, layer_params(params["cycles"][f"slot{i}"], c))
+               for c in range(nc) for i, k in enumerate(pat)]
+        i = 0
+        while f"rest{i}" in params:
+            out.append((pat[i], params[f"rest{i}"]))
+            i += 1
+        return out
+
+    def _cache_slots(self) -> List[int]:
+        """For each layer in :meth:`_layers` order, its index in the state's
+        KV stack (attention) or recurrent stacks (others), as the reference
+        flattens them: attention slot-major over the cycles, recurrent
+        layers cycle-major (layer order), the remainder appended."""
+        cfg = self.cfg
+        if not cfg.block_pattern:
+            return list(range(cfg.num_layers))
+        pat = cfg.block_pattern
+        nc, rest = divmod(cfg.num_layers, len(pat))
+        attn_slots = [i for i, k in enumerate(pat) if k == "attn"]
+        rec_slots = [i for i, k in enumerate(pat) if k != "attn"]
+        out = []
+        for c in range(nc):
+            for i, k in enumerate(pat):
+                out.append(attn_slots.index(i) * nc + c if k == "attn"
+                           else c * len(rec_slots) + rec_slots.index(i))
+        n_attn, n_rec = nc * len(attn_slots), nc * len(rec_slots)
+        for i in range(rest):
+            if pat[i] == "attn":
+                out.append(n_attn)
+                n_attn += 1
+            else:
+                out.append(n_rec)
+                n_rec += 1
+        return out
+
     # ------------------------------------------------------------------
-    # Forward (prefill trunk)
+    # Blocks (full sequence)
     # ------------------------------------------------------------------
     def _norm(self, x, p):
         return L.norm_apply(self.cfg, x, p, use_kernels=self.use_kernels)
 
-    def _apply_block(self, p: dict, x, positions, collect_cache: bool):
+    def _apply_block(self, kind: str, p: dict, x, positions, aux,
+                     collect_cache: bool):
         cfg = self.cfg
+        cache = None
         h = self._norm(x, p["norm1"])
-        o, kv = attn.attn_apply(cfg, p["attn"], h, positions=positions,
-                                causal=True, window=self._attn_window(),
-                                impl=self.attn_impl,
-                                kv_for_cache=collect_cache,
-                                use_kernels=self.use_kernels)
-        x = x + _scaled(o, cfg.residual_multiplier)
-        h2 = self._norm(x, p["norm2"])
-        x = x + _scaled(L.mlp_apply(cfg, p["mlp"], h2),
-                        cfg.residual_multiplier)
-        return x, kv
+        if kind == "attn":
+            o, cache = attn.attn_apply(cfg, p["attn"], h, positions=positions,
+                                       causal=True, window=self._attn_window(),
+                                       impl=self.attn_impl,
+                                       kv_for_cache=collect_cache,
+                                       use_kernels=self.use_kernels)
+            x = x + _scaled(o, cfg.residual_multiplier)
+            h2 = self._norm(x, p["norm2"])
+            if cfg.is_moe:
+                o2, a = moe.moe_apply(cfg, p["moe"], h2)
+                aux = aux + a
+            else:
+                o2 = L.mlp_apply(cfg, p["mlp"], h2)
+            x = x + _scaled(o2, cfg.residual_multiplier)
+        elif kind == "ssm":
+            o, cache = mamba2.mamba_apply(cfg, p["ssm"], h,
+                                          return_state=collect_cache)
+            x = x + o
+        elif kind == "rglru":
+            o, cache = rglru.rglru_apply(cfg, p["rglru"], h,
+                                         return_state=collect_cache)
+            x = x + o
+            h2 = self._norm(x, p["norm2"])
+            x = x + L.mlp_apply(cfg, p["mlp"], h2)
+        else:
+            raise ValueError(kind)
+        return x, aux, cache
 
     def hidden(self, params, tokens: torch.Tensor, *,
                collect_cache: bool = False):
-        """tokens [B,S] -> hidden [B,S,D], aux, caches (per-layer (k, v)
-        list under ``"layers"`` when ``collect_cache``)."""
+        """tokens [B,S] -> hidden [B,S,D], aux (the MoE load-balance losses
+        summed over layers), caches (per-layer ``(kind, cache)`` list under
+        ``"layers"`` when ``collect_cache``, in :meth:`_layers` order)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed_tokens(cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        caches = []
-        for i in range(cfg.num_layers):
-            x, kv = self._apply_block(layer_params(params["layers"], i), x,
-                                      positions, collect_cache)
-            caches.append(kv)
-        x = self._norm(x, params["final_norm"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches = []
+        for kind, p in self._layers(params):
+            x, aux, c = self._apply_block(kind, p, x, positions, aux,
+                                          collect_cache)
+            caches.append((kind, c))
+        x = self._norm(x, params["final_norm"])
         return x, aux, ({"layers": caches} if collect_cache else {})
 
     def apply(self, params, tokens: torch.Tensor):
@@ -134,13 +226,40 @@ class LM:
     # Decode caches
     # ------------------------------------------------------------------
     def _attn_window(self) -> Optional[int]:
-        return self.cfg.sliding_window
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return cfg.local_attn_window
+        return cfg.sliding_window
+
+    def _counts(self) -> Dict[str, int]:
+        c: Dict[str, int] = {}
+        for k in self.kinds:
+            c[k] = c.get(k, 0) + 1
+        return c
 
     def init_cache(self, batch: int, max_len: int, device=None) -> DecodeState:
-        kv = attn.init_kv_cache(self.cfg, self.cfg.num_layers, batch,
-                                max_len, window=self._attn_window(),
-                                dtype=L.dtype_of(self.cfg), device=device)
-        return DecodeState(kv, 0)
+        cfg = self.cfg
+        counts = self._counts()
+        dt = L.dtype_of(cfg)
+        kv = conv = rec = None
+        if counts.get("attn"):
+            kv = attn.init_kv_cache(cfg, counts["attn"], batch, max_len,
+                                    window=self._attn_window(), dtype=dt,
+                                    device=device)
+        if counts.get("ssm"):
+            s, _, nheads, cc = mamba2._dims(cfg)
+            conv = torch.zeros((counts["ssm"], batch, s.conv_dim - 1, cc),
+                               dtype=dt, device=device)
+            rec = torch.zeros((counts["ssm"], batch, nheads, s.head_dim,
+                               s.state_dim), dtype=torch.float32,
+                              device=device)
+        if counts.get("rglru"):
+            w = cfg.rglru_width or cfg.d_model
+            conv = torch.zeros((counts["rglru"], batch, 3, w), dtype=dt,
+                               device=device)
+            rec = torch.zeros((counts["rglru"], batch, w),
+                              dtype=torch.float32, device=device)
+        return DecodeState(kv, conv, rec, 0)
 
     # ------------------------------------------------------------------
     # Prefill
@@ -148,36 +267,57 @@ class LM:
     def prefill(self, params, tokens: torch.Tensor,
                 max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-        """tokens [B,S] -> (last-position logits [B,1,V], state). The cache
-        has W = the window slots for a windowed config (circular, slot =
-        pos % W, whatever ``max_len`` is, as in the reference), else
-        ``max(max_len, S)`` slots."""
+        """tokens [B,S] -> (last-position logits [B,1,V], state). The KV
+        cache has W = the window slots for a windowed config (circular,
+        slot = pos % W, whatever ``max_len`` is, as in the reference), else
+        ``max(max_len, S)`` slots; the recurrent stacks hold each layer's
+        last conv window and state."""
         cfg = self.cfg
         B, S = tokens.shape
         max_len = max_len or S
         x, _, caches = self.hidden(params, tokens, collect_cache=True)
         logits = L.logits_from_hidden(cfg, params["embed"], x[:, -1:, :])
         del x
+        layers = caches["layers"]
+        slots = self._cache_slots()
+        attn_at = {slots[i]: i for i, (k, _) in enumerate(layers)
+                   if k == "attn"}
+        rec_at = {slots[i]: i for i, (k, _) in enumerate(layers)
+                  if k != "attn"}
+        kv = conv = rec = None
+        if attn_at:
+            kv = self._pack_kv([layers[attn_at[j]][1]
+                                for j in range(len(attn_at))], S, max_len)
+        if rec_at:
+            order = [layers[rec_at[j]][1] for j in range(len(rec_at))]
+            conv = torch.stack([c[0] for c in order])
+            rec = torch.stack([c[1] for c in order])
+        return logits, DecodeState(kv, conv, rec, S)
+
+    def _pack_kv(self, layer_kv: list, S: int, max_len: int) -> attn.KVCache:
+        """Per-layer (k, v) [B,S,Hkv,D] -> the stacked [n, B, slots, Hkv, D]
+        cache, positions S-W..S-1 at their circular slots pos % W when the
+        window is shorter than the prompt."""
         W = self._attn_window()
         slots = W if W is not None else max(max_len, S)
-        layer_kv = caches["layers"]
         k0 = layer_kv[0][0]
-        shape = (cfg.num_layers, B, slots) + tuple(k0.shape[2:])
+        B = k0.shape[0]
+        shape = (len(layer_kv), B, slots) + tuple(k0.shape[2:])
         k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
         v = torch.zeros_like(k)
-        if W is not None and W < S:
-            # positions S-W .. S-1 go to their circular slots pos % W
+        wrap = W is not None and W < S
+        if wrap:
             idx = torch.arange(S - W, S, device=k0.device) % W
-        for i in range(cfg.num_layers):
+        for i in range(len(layer_kv)):
             kl, vl = layer_kv[i]
             layer_kv[i] = None          # free each layer's copy as it lands
-            if W is not None and W < S:
+            if wrap:
                 k[i].index_copy_(1, idx, kl[:, S - W:])
                 v[i].index_copy_(1, idx, vl[:, S - W:])
             else:
                 k[i, :, :S] = kl
                 v[i, :, :S] = vl
-        return logits, DecodeState(attn.KVCache(k, v, S), S)
+        return attn.KVCache(k, v, S)
 
     # ------------------------------------------------------------------
     # Decode
@@ -185,24 +325,48 @@ class LM:
     def decode_step(self, params, state: DecodeState,
                     tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, DecodeState]:
-        """tokens [B,1] -> (logits [B,1,V], new state); the cache is
+        """tokens [B,1] -> (logits [B,1,V], new state); the caches are
         written in place."""
         cfg = self.cfg
         x = L.embed_tokens(cfg, params["embed"], tokens)
         index = state.index
-        kv = state.kv
-        for i in range(cfg.num_layers):
-            p = layer_params(params["layers"], i)
+        kv, conv, rec = state.kv, state.conv, state.rec
+        layers = self._layers(params)
+        if cfg.block_pattern:
+            nc = cfg.num_layers // len(cfg.block_pattern)
+            if any(k == "attn" for k, _ in layers[nc * len(cfg.block_pattern):]):
+                raise NotImplementedError("attn remainder layers")
+        for (kind, p), j in zip(layers, self._cache_slots()):
             h = self._norm(x, p["norm1"])
-            o = attn.attn_decode_apply(cfg, p["attn"], h, kv.k[i], kv.v[i],
-                                       index, window=self._attn_window(),
-                                       use_kernels=self.use_kernels)
-            x = x + _scaled(o, cfg.residual_multiplier)
-            h2 = self._norm(x, p["norm2"])
-            x = x + _scaled(L.mlp_apply(cfg, p["mlp"], h2),
-                            cfg.residual_multiplier)
+            if kind == "attn":
+                o = attn.attn_decode_apply(cfg, p["attn"], h, kv.k[j],
+                                           kv.v[j], index,
+                                           window=self._attn_window(),
+                                           use_kernels=self.use_kernels)
+                x = x + _scaled(o, cfg.residual_multiplier)
+                h2 = self._norm(x, p["norm2"])
+                if cfg.is_moe:
+                    o2, _ = moe.moe_apply(cfg, p["moe"], h2)
+                else:
+                    o2 = L.mlp_apply(cfg, p["mlp"], h2)
+                x = x + _scaled(o2, cfg.residual_multiplier)
+            elif kind == "ssm":
+                o, (cv, st) = mamba2.mamba_decode_step(cfg, p["ssm"], h,
+                                                       conv[j], rec[j])
+                conv[j].copy_(cv)
+                rec[j].copy_(st)
+                x = x + o
+            else:
+                o, (cv, st) = rglru.rglru_decode_step(cfg, p["rglru"], h,
+                                                      conv[j], rec[j])
+                conv[j].copy_(cv)
+                rec[j].copy_(st)
+                x = x + o
+                h2 = self._norm(x, p["norm2"])
+                x = x + L.mlp_apply(cfg, p["mlp"], h2)
         x = self._norm(x, params["final_norm"])
         logits = L.logits_from_hidden(cfg, params["embed"], x)
         new_index = index + 1
-        return logits, DecodeState(attn.KVCache(kv.k, kv.v, new_index),
-                                   new_index)
+        if kv is not None:
+            kv = attn.KVCache(kv.k, kv.v, new_index)
+        return logits, DecodeState(kv, conv, rec, new_index)

@@ -16,11 +16,17 @@ coalesce fine-tunes of one base into a single embed lane. The remote
 See ``docs/architecture.md`` for where each store sits in the dataflow.
 
 The decoupled store is also the substrate for distributed checkpointing
-(the reference's ``storage/checkpoint.py``, not ported yet): each layer is
-an independent Mvec file, so a restore can read any subset (elastic resharding, partial update, variant
-reuse) — the paper's partial-load property at pod scale.
+(:mod:`repro_torch.storage.checkpoint`): each layer is an independent Mvec
+file, so a restore can read any subset (elastic resharding, partial
+update, variant reuse) — the paper's partial-load property at pod scale.
 
-Port of ``src/repro/storage/stores.py``.
+Port of ``src/repro/storage/stores.py``. Leaves may be numpy arrays or
+torch tensors on any device, bfloat16 included: every leaf goes to the
+host through :func:`repro_torch.storage.mvec.payload_array` (a CUDA tensor
+by ``.detach().cpu()``, bf16 as its uint16 bit pattern), so the files
+equal the reference's byte for byte. As in the reference, whose bf16
+(``ml_dtypes``) arrays are not of a numeric numpy kind, a changed bf16
+layer of a fine-tune is stored whole, not as a delta.
 """
 from __future__ import annotations
 
@@ -103,6 +109,12 @@ def unflatten_like(template, flat: Dict[str, Any]):
 # BLOB store
 # ---------------------------------------------------------------------------
 
+def _numel(leaf) -> int:
+    """Element count of a numpy array, a torch tensor or a scalar."""
+    numel = getattr(leaf, "numel", None)
+    return int(numel() if callable(numel) else np.asarray(leaf).size)
+
+
 class BlobStore:
     """All-in-one serialized model object (architecture + params)."""
 
@@ -117,7 +129,7 @@ class BlobStore:
         flat = flatten_params(params)
         payload = {
             "arch": arch_meta,
-            "layers": {k: mvec.encode(np.asarray(v)) for k, v in flat.items()},
+            "layers": {k: mvec.encode(v) for k, v in flat.items()},
         }
         path = self.root / f"{model_id}.blob"
         with open(path, "wb") as f:
@@ -126,7 +138,7 @@ class BlobStore:
             self.catalog.register_model(ModelInfo(
                 model_id=model_id, storage="blob", path=str(path),
                 task_types=task_types or [], modality=modality,
-                param_count=int(sum(np.asarray(v).size for v in flat.values()))))
+                param_count=int(sum(_numel(v) for v in flat.values()))))
         return path
 
     def load(self, model_id: str, template=None):
@@ -459,11 +471,12 @@ class DecoupledStore:
                          for li in self.catalog.get_layers(base_model)}
         layers: List[LayerInfo] = []
         for i, (key, leaf) in enumerate(sorted(flat.items())):
-            arr = np.asarray(leaf)
+            # host payload (bf16 as uint16 bits) and the logical dtype name
+            arr, dname = mvec.payload_array(leaf)
             if base_model and key in base_flat:
-                base_arr = np.asarray(
+                base_arr, base_name = mvec.payload_array(
                     self._read_layer_file(base_model, base_flat[key]))
-                if (base_arr.shape == arr.shape
+                if (base_arr.shape == arr.shape and base_name == dname
                         and base_arr.tobytes() == arr.tobytes()):
                     # unchanged: reference the base *layer* (resolved
                     # through the catalog at read time, so chains —
@@ -472,13 +485,13 @@ class DecoupledStore:
                     # write nothing
                     layers.append(LayerInfo(
                         model_id=model_id, layer_name=key, layer_index=i,
-                        dtype=str(arr.dtype), shape=list(arr.shape),
+                        dtype=dname, shape=list(arr.shape),
                         nbytes=arr.nbytes,
                         file=f"@{base_model}:{key}",
                         delta_of=base_model))
                     continue
-                if (base_arr.shape == arr.shape
-                        and base_arr.dtype == arr.dtype
+                if (base_arr.shape == arr.shape and base_name == dname
+                        and dname != "bfloat16"
                         and arr.dtype.kind in "fiu"):
                     # changed, same geometry: store only the per-layer
                     # delta; reads compose base + delta (integers exact
@@ -499,26 +512,24 @@ class DecoupledStore:
                             self.stats.quant_error_bound, bound)
                     layers.append(LayerInfo(
                         model_id=model_id, layer_name=key, layer_index=i,
-                        dtype=str(arr.dtype), shape=list(arr.shape),
+                        dtype=dname, shape=list(arr.shape),
                         nbytes=arr.nbytes, file=fname,
                         delta_of=base_model, enc=enc, bound=bound))
                     continue
             fname = f"layer_{i:05d}.mvec"
             enc = "dense"
             if self.dedup_pages:
-                payload, pname = mvec.payload_array(arr)
-                digests, dup_pages, dup_bytes = self.pages.put(
-                    payload.tobytes())
+                digests, dup_pages, dup_bytes = self.pages.put(arr.tobytes())
                 (d / fname).write_bytes(mvec.encode_paged(
-                    pname, payload.shape, self.pages.page_bytes, digests))
+                    dname, arr.shape, self.pages.page_bytes, digests))
                 self.stats.dedup_pages += dup_pages
                 self.stats.dedup_bytes_saved += dup_bytes
                 enc = "paged"
             else:
-                (d / fname).write_bytes(mvec.encode(arr))
+                (d / fname).write_bytes(mvec.encode(leaf))
             layers.append(LayerInfo(
                 model_id=model_id, layer_name=key, layer_index=i,
-                dtype=str(arr.dtype), shape=list(arr.shape),
+                dtype=dname, shape=list(arr.shape),
                 nbytes=arr.nbytes, file=fname, delta_of=None, enc=enc))
         self.catalog.register_layers(model_id, layers)
         # save generation: rewriting a model's files under the same id
@@ -534,8 +545,7 @@ class DecoupledStore:
             model_id=model_id, storage="decoupled", path=str(d),
             base_model=base_model, task_types=task_types or [],
             modality=modality,
-            param_count=int(sum(np.asarray(v).size
-                                for v in flat.values())),
+            param_count=int(sum(_numel(v) for v in flat.values())),
             extra={"save_gen": gen}))
         return d
 
@@ -715,7 +725,7 @@ class DecoupledStore:
     def _cache_put(self, key, arr) -> None:
         if not self.cache_layers:
             return
-        nbytes = int(np.asarray(arr).nbytes)
+        nbytes = int(arr.nbytes)
         cap = self.cache_capacity_bytes
         if nbytes > cap:
             return          # a tensor bigger than the cache never enters
@@ -823,7 +833,7 @@ class DecoupledStore:
             raise KeyError(
                 f"delta layer {li.layer_name!r} of {model_id!r} references "
                 f"missing base layer in {li.delta_of!r}")
-        base_arr = np.asarray(
+        base_arr, _ = mvec.payload_array(
             self._read_layer_file(li.delta_of, base_li, rows=rows))
         with open(path, "rb") as f:
             head = mvec.read_header(f)

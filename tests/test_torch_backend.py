@@ -141,3 +141,61 @@ def test_default_device_without_cuda_raises(monkeypatch):
 def test_multi_device_pool_is_not_ported():
     with pytest.raises(ValueError):
         make_backends("torch", device_count=2, torch_device="cpu")
+
+
+# -- the fast calibration's probe sizes --------------------------------------
+# On the card a 64- or 512-row call is all launch: both probes take the same
+# time and the fitted slope clamped at 1e-12 s a row. A backend whose call
+# costs a fixed launch, noisy by 0.1 ms, plus a per-row cost on a clock it
+# drives itself shows whether a pair of probe sizes resolves the slope.
+
+class _SyntheticBackend:
+    """``run_infer`` advances a fake clock by launch + rows * per_row, the
+    launch jittered from a seeded generator."""
+
+    def __init__(self, per_row, launch=3e-4, jitter=1e-4, seed=0):
+        self.per_row, self.launch, self.jitter = per_row, launch, jitter
+        self.rng = np.random.default_rng(seed)
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+    def stage(self, version, zm):
+        pass
+
+    def run_infer(self, spec, batch):
+        n = len(batch["x"])
+        self.now += (self.launch + n * self.per_row
+                     + self.rng.uniform(-self.jitter, self.jitter))
+
+
+@pytest.mark.parametrize("per_row", [2e-8, 1.3e-7])
+@pytest.mark.parametrize("seed", range(4))
+def test_cuda_calibration_probe_resolves_the_per_row_cost(monkeypatch,
+                                                          per_row, seed):
+    from repro_torch.engine import session as sess_mod
+    from repro_torch.pipeline import cost
+    be = _SyntheticBackend(per_row, seed=seed)
+    monkeypatch.setattr(cost, "time", be)
+    prof = calibrate(be, "cuda", rows=sess_mod._calib_rows("cuda"),
+                     repeats=1)
+    got = (2.0 * 32 * 64 + 64) / prof.flops_per_s
+    assert got > 1e-12 and abs(got - per_row) / per_row < 0.2
+    assert sess_mod._calib_rows("host") == sess_mod._FAST_CALIB_ROWS
+
+
+def test_small_probes_lose_the_card_per_row_cost(monkeypatch):
+    """The old (64, 512) probe against the same backend: the launch noise
+    swamps 448 rows' cost, so the fit is off by far more than 20%."""
+    from repro_torch.engine import session as sess_mod
+    from repro_torch.pipeline import cost
+    errs = []
+    for seed in range(4):
+        be = _SyntheticBackend(2e-8, seed=seed)
+        monkeypatch.setattr(cost, "time", be)
+        prof = calibrate(be, "cuda", rows=sess_mod._FAST_CALIB_ROWS,
+                         repeats=1)
+        errs.append(abs((2.0 * 32 * 64 + 64) / prof.flops_per_s - 2e-8)
+                    / 2e-8)
+    assert max(errs) > 0.2

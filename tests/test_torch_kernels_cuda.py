@@ -265,6 +265,93 @@ def test_cuda_decode_attention_wide_heads(cuda_device, dtype, D, B, length):
                   ATTN_TOL[dtype])
 
 
+# -- head dim 256 (gemma-2b, recurrentgemma-9b) and G * D 4096 -------------
+# flash: D past 128 runs the KS / JD 16 instances, Q's fragments read from
+# shared memory each k step; decode: recurrentgemma's G 16 x D 256 group,
+# 16 column pairs a thread on the f32 path.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 65, 300, 1024])
+@pytest.mark.parametrize("Hkv,G", [(1, 8), (1, 16), (2, 4)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (True, 257), (False, None)])
+def test_cuda_flash_attention_head_dim_256(cuda_device, dtype, S, Hkv, G,
+                                           causal, window):
+    q = _randn((1, Hkv * G, S, 256), S + G, cuda_device, dtype)
+    k = _randn((1, Hkv, S, 256), S + 1, cuda_device, dtype)
+    v = _randn((1, Hkv, S, 256), S + 2, cuda_device, dtype)
+    before = flash_attention.launch_count
+    _flash_check(q, k, v, causal, window, dtype)
+    assert flash_attention.launch_count == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [136, 200, 248])
+def test_cuda_flash_attention_padded_wide_heads(cuda_device, dtype, D):
+    # D in (128, 256) runs the 256 instance with zero columns past D
+    q = _randn((2, 4, 130, D), D, cuda_device, dtype)
+    k = _randn((2, 2, 130, D), D + 1, cuda_device, dtype)
+    v = _randn((2, 2, 130, D), D + 2, cuda_device, dtype)
+    for causal, window in ((True, None), (True, 33), (False, None)):
+        _flash_check(q, k, v, causal, window, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_recurrentgemma_prefill(cuda_device):
+    # the served prefill's shape: B 32, Hq 16, Hkv 1, S 512, D 256, window
+    # 2048, bf16, in the model's [B, S, H, D] layout
+    bf = torch.bfloat16
+    q = _randn((32, 512, 16, 256), 20, cuda_device, bf).transpose(1, 2)
+    k = _randn((32, 512, 1, 256), 21, cuda_device, bf).transpose(1, 2)
+    v = _randn((32, 512, 1, 256), 22, cuda_device, bf).transpose(1, 2)
+    _flash_check(q, k, v, True, 2048, bf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W", [(32, 2048), (1, 2048), (2, 4096)])
+@pytest.mark.parametrize("where", ["1", "chunk-1", "chunk", "chunk+1", "W",
+                                   "rows"])
+def test_cuda_decode_attention_group_width_4096(cuda_device, dtype, B, W,
+                                                where):
+    # recurrentgemma's group: G 16 query heads on one kv head of D 256
+    Hq, Hkv, D = 16, 1, 256
+    q = _randn((B, Hq, D), B + W, cuda_device, dtype)
+    kc = _randn((B, W, Hkv, D), 12, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, W, Hkv, D), 13, cuda_device, dtype).transpose(1, 2)
+    chunk = _split_plan(B, Hkv, W)[0]
+    if where == "rows":
+        length = torch.tensor([(1, W, chunk + 1, chunk)[b % 4]
+                               for b in range(B)], device=cuda_device)
+    else:
+        length = {"1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+                  "chunk+1": chunk + 1, "W": W}[where]
+    before = decode_attention.launch_count
+    got = decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert decode_attention.launch_count == before + 1
+    _assert_close(got, decode_attention_ref(q, kc, vc, length), dtype,
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(32, 128), (16, 240), (12, 256)])
+def test_cuda_decode_attention_wide_groups(cuda_device, dtype, G, D):
+    # G * D between 2048 and 4096: 16 column pairs a thread in f32; G past
+    # 16 takes two m16 row groups in bf16
+    q = _randn((3, 2 * G, D), G + D, cuda_device, dtype)
+    kc = _randn((3, 700, 2, D), 14, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((3, 700, 2, D), 15, cuda_device, dtype).transpose(1, 2)
+    for length in (1, 129, 700):
+        got = decode_attention(q, kc, vc, length)
+        torch.cuda.synchronize()
+        _assert_close(got, decode_attention_ref(q, kc, vc, length), dtype,
+                      ATTN_TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_reject_unaligned_inputs(cuda_device):
     bf = torch.bfloat16
@@ -296,8 +383,8 @@ def test_cuda_attention_kernels_reject_unaligned_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_attention_kernels_reject_what_they_do_not_take(cuda_device):
-    q = torch.zeros((1, 4, 16, 144), device=cuda_device)
-    with pytest.raises(ValueError):          # head dim above 128
+    q = torch.zeros((1, 4, 16, 264), device=cuda_device)
+    with pytest.raises(ValueError):          # head dim above 256
         flash_attention(q, q[:, :2], q[:, :2])
     q = torch.zeros((1, 4, 16, 32), device=cuda_device)
     with pytest.raises(ValueError):          # devices differ
@@ -305,9 +392,9 @@ def test_cuda_attention_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):          # last dim not contiguous
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                         q[:, :2], q[:, :2])
-    qd = torch.zeros((2, 64, 64), device=cuda_device)
+    qd = torch.zeros((2, 128, 64), device=cuda_device)
     kc = torch.zeros((2, 1, 32, 64), device=cuda_device)
-    with pytest.raises(ValueError):          # G * D above 2048
+    with pytest.raises(ValueError):          # G * D above 4096
         decode_attention(qd, kc, kc, 4)
     with pytest.raises(ValueError):          # length on another device
         decode_attention(qd[:, :8], kc, kc, torch.tensor([1, 2]))

@@ -22,11 +22,11 @@ from repro_torch.models import build_model  # noqa: E402
 ARCH = "h2o-danube-1.8b"
 
 
-def _engines(slots=2, prompt=32, gen=8):
-    jm = jbuild(jsmoke(ARCH), attn_impl="naive")
+def _engines(slots=2, prompt=32, gen=8, arch=ARCH):
+    jm = jbuild(jsmoke(arch), attn_impl="naive")
     jparams = jm.init(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams))
-    m = build_model(smoke_config(ARCH), attn_impl="naive")
+    m = build_model(smoke_config(arch), attn_impl="naive")
     return (JServingEngine(jm, jparams, max_len=prompt + gen,
                            batch_slots=slots),
             serve.ServingEngine(m, params, max_len=prompt + gen,
@@ -45,6 +45,32 @@ def test_generate_gives_the_reference_greedy_tokens():
     assert st["prefill_tokens"] == 4 * 32 and st["decode_tokens"] == 4 * 7
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_families_generate_the_reference_greedy_tokens(arch):
+    """The MoE, SSM and hybrid families through both engines: 70-token
+    prompts (past recurrentgemma's 64-slot window) in two slot chunks."""
+    want_engine, engine = _engines(prompt=70, gen=6, arch=arch)
+    prompts = np.random.default_rng(1).integers(0, 512, (4, 70)).astype(
+        np.int32)
+    want = want_engine.generate(prompts, 6)
+    got = engine.generate(prompts, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_main_serves_the_families_on_the_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "2", "--gen", "4"]) == 0
+    assert "generated (2, 4)" in capsys.readouterr().out
+
+
+def test_enc_dec_is_refused_by_the_launcher():
+    with pytest.raises(SystemExit, match="Queue 1, item 1"):
+        serve.main(["--arch", "whisper-medium", "--smoke", "--device", "cpu"])
+
+
 def test_main_runs_on_the_cpu_when_asked(capsys):
     assert serve.main(["--arch", ARCH, "--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
@@ -57,6 +83,17 @@ def test_slots_come_from_the_cuda_cost_profile():
     the 8 GB cap."""
     from repro_torch.configs import get_config
     assert serve.serving_slots(get_config(ARCH)) == 32
+
+
+@pytest.mark.parametrize("arch,slots", [("mamba2-370m", 32),
+                                        ("olmoe-1b-7b", 1),
+                                        ("recurrentgemma-9b", 1)])
+def test_family_slots_come_from_eq_11(arch, slots):
+    """Eq. 11 with its 8 GB cap: mamba2's 0.84 GB of bf16 weights leave
+    room for 32 slots; olmoe's 13.8 GB and recurrentgemma's 17 GB exceed
+    the cap at any batch, and the cost model falls back to 1."""
+    from repro_torch.configs import get_config
+    assert serve.serving_slots(get_config(arch)) == slots
 
 
 def test_cuda_is_the_default_and_raises_without_it():

@@ -195,3 +195,82 @@ def test_bf16_torch_tensor_encodes_to_reference_bytes():
     assert pmvec.encode(t) == rmvec.encode(src)
     assert pmvec.encode(torch.arange(6.0)) == rmvec.encode(
         np.arange(6.0, dtype=np.float32))
+
+
+# -- bf16 (and device) leaves through the stores ---------------------------
+# The reference saves jax bf16 params and a bf16 fine-tune on a bf16 base;
+# the port saves the same model as torch.bfloat16 tensors. Every layer file
+# and every catalog row must be equal byte for byte.
+
+def _bf16_model(seed):
+    rng = np.random.default_rng(seed)
+    return {"embed": rng.standard_normal((16, 8)),
+            "layers": {"w1": rng.standard_normal((8, 8)),
+                       "b1": np.zeros(8)},
+            "scale": rng.standard_normal(8).astype(np.float32)}
+
+
+def _as_jax(tree):
+    return {k: _as_jax(v) if isinstance(v, dict)
+            else jnp.asarray(v, jnp.float32 if v.dtype == np.float32
+                             else jnp.bfloat16)
+            for k, v in tree.items()}
+
+
+def _as_torch(jtree):
+    from repro_torch.convert import lm_params_from_numpy
+    return lm_params_from_numpy({k: (np.asarray(v) if not isinstance(v, dict)
+                                     else {kk: np.asarray(vv)
+                                           for kk, vv in v.items()})
+                                 for k, v in jtree.items()})
+
+
+def _files(root):
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and p.suffix == ".mvec" or p.name == "architecture.json"}
+
+
+@pytest.mark.parametrize("opts", list(STORE_OPTS))
+def test_bf16_model_and_finetune_save_byte_equal(tmp_path, opts):
+    kw = STORE_OPTS[opts]
+    base = _as_jax(_bf16_model(1))
+    ft = dict(base, embed=base["embed"] + jnp.asarray(0.5, jnp.bfloat16),
+              scale=base["scale"] * 2.0)
+    roots = {}
+    for name, pkg, conv in (("ref", RS, lambda t: t), ("port", PS, _as_torch)):
+        root = tmp_path / name
+        st = pkg.DecoupledStore(root / "dec", pkg.Catalog(root / "cat"), **kw)
+        st.save("base", {"arch": "lm"}, conv(base))
+        st.save("ft", {"arch": "lm"}, conv(ft), base_model="base")
+        roots[name] = (root, st, pkg.Catalog(root / "cat"))
+    ref_files, port_files = (_files(roots[n][0] / "dec") for n in roots)
+    assert ref_files and ref_files.keys() == port_files.keys()
+    for k in ref_files:
+        assert port_files[k] == ref_files[k], k
+    for mid in ("base", "ft"):
+        want = [(li.layer_name, li.dtype, li.shape, li.nbytes, li.file,
+                 li.delta_of, li.enc)
+                for li in roots["ref"][2].get_layers(mid)]
+        got = [(li.layer_name, li.dtype, li.shape, li.nbytes, li.file,
+                li.delta_of, li.enc)
+               for li in roots["port"][2].get_layers(mid)]
+        assert got == want, mid
+    # the port reads its own bf16 fine-tune back to the same bits
+    _, flat = roots["port"][1].load("ft")
+    for k, v in PS.flatten_params(_as_torch(ft)).items():
+        got, got_name = pmvec.payload_array(flat[k])
+        want, want_name = pmvec.payload_array(v)
+        assert got_name == want_name and np.array_equal(got, want), k
+
+
+def test_bf16_blob_save_byte_equal(tmp_path):
+    base = _as_jax(_bf16_model(2))
+    RS.BlobStore(tmp_path / "r", RS.Catalog(tmp_path / "rc")).save(
+        "m", {"arch": "lm"}, base)
+    PS.BlobStore(tmp_path / "p", PS.Catalog(tmp_path / "pc")).save(
+        "m", {"arch": "lm"}, _as_torch(base))
+    assert ((tmp_path / "p" / "m.blob").read_bytes()
+            == (tmp_path / "r" / "m.blob").read_bytes())
+    assert (PS.Catalog(tmp_path / "pc").get_model("m").param_count
+            == RS.Catalog(tmp_path / "rc").get_model("m").param_count)
