@@ -8,9 +8,15 @@ by duck typing and through numpy.
   ``source_family`` (the reference's ``repro.core.zoo.ZooModel`` among
   them) becomes the port's :class:`repro_torch.core.zoo.ZooModel` with the
   same weights.
-- :func:`lm_params_from_numpy`: the reference LM's params (a nested dict
-  of arrays, stacked ``[L, ...]`` under ``"layers"``) become the port's
-  dict of tensors with the same keys, dtypes and values.
+- :func:`lm_params_from_numpy`: the reference model's params (a nested
+  dict of arrays, stacked ``[L, ...]``) become the port's dict of tensors
+  with the same keys, dtypes and values: the LM's tree (``layers``, or a
+  hybrid's ``cycles`` / ``rest{i}``) and the encoder-decoder's
+  (``enc_proj``, ``enc_layers``, ``enc_norm``, ``dec_layers``) alike, as
+  it walks any nested dict.
+- :func:`adamw_state_from_numpy`: the reference's ``AdamWState`` (step,
+  m, v) becomes the port's, so both packages can take a step from the
+  same state.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.zoo import ZooModel
+from repro_torch.training.optimizer import AdamWState
 
 
 def zoo_from_numpy(models: Iterable) -> List[ZooModel]:
@@ -53,3 +60,13 @@ def lm_params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor_from_numpy(tree, device)
+
+
+def adamw_state_from_numpy(state, device="cpu") -> AdamWState:
+    """Any ``(step, m, v)`` with a numpy-convertible scalar step and nested
+    dicts of moments -> the port's :class:`AdamWState` on ``device`` (step
+    an int32 scalar)."""
+    step, m, v = state
+    return AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        lm_params_from_numpy(m, device), lm_params_from_numpy(v, device))

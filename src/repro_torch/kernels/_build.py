@@ -106,6 +106,21 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """True if autograd is recording and an input requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` where autograd would need a backward of a
+    kernel that has none, rather than return a tensor without a
+    ``grad_fn``."""
+    if records_grad(*tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           "under torch.no_grad() / inference_mode, or "
+                           "with inputs that require no grad")
+
+
 def check_aligned(name: str, d: int, *tensors: torch.Tensor) -> None:
     """Raise ``ValueError`` unless a kernel that copies 16-byte chunks can
     read every tensor: D a multiple of 8, each data pointer and each

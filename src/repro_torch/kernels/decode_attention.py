@@ -23,7 +23,8 @@ The wrapper dispatches on where the input lies: CPU tensors take the plain
 PyTorch version (:func:`repro_torch.kernels.ref.decode_attention_ref`),
 CUDA tensors launch the kernel on the current stream or raise. There is no
 fallback between the two. ``decode_attention.launch_count`` counts
-launches.
+launches. Decoding is never differentiated: on the card the wrapper raises
+where autograd records and an input requires grad.
 """
 from __future__ import annotations
 
@@ -119,6 +120,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, length)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length)
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     o = torch.empty_like(q)

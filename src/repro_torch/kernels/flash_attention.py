@@ -24,6 +24,17 @@ The wrapper dispatches on where the input lies: CPU tensors take the plain
 PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`),
 CUDA tensors launch the kernel on the current stream or raise. There is no
 fallback between the two. ``flash_attention.launch_count`` counts launches.
+
+Gradients: where autograd records and q, k or v requires grad, a CUDA call
+goes through :class:`FlashAttentionFunction`, whose forward is the kernel
+and whose backward differentiates the plain version (the reference's
+kernel has no backward; it trains over plain jnp). The plain version
+holds [B, Hq, rows, Sk] float32 scores, so the backward recomputes it in
+chunks of query rows (:func:`_backward_rows`: about ``BACKWARD_SCORES``
+scores a chunk, 1 GiB in float32), each chunk against the keys its rows
+can reach (up to its last row when causal), summing the chunks' k and v
+gradients. A CPU call is the plain version itself, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 MAX_HEAD_DIM = 256
 _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+BACKWARD_SCORES = 1 << 28       # float32 scores a backward chunk recomputes
 _KERNEL = _build.Kernel("flash_attention", "flash_attention",
                         [ctypes.c_void_p] * 4
                         + [ctypes.POINTER(ctypes.c_longlong)]
@@ -83,10 +95,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D] in q's
     dtype and memory layout. Mask: ``kpos <= qpos`` if ``causal``,
-    ``kpos > qpos - window`` if ``window``; scale ``D ** -0.5``."""
+    ``kpos > qpos - window`` if ``window``; scale ``D ** -0.5``.
+    Differentiable (see the module docstring)."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _build.records_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _backward_rows(batch: int, q_heads: int, keys: int) -> int:
+    """Query rows a backward chunk takes: about ``BACKWARD_SCORES`` scores,
+    a multiple of 64 rows, at least 64."""
+    rows = BACKWARD_SCORES // max(batch * q_heads * keys, 1)
+    return max(64, rows // 64 * 64)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel forward with a plain backward. q, k and v are saved as
+    they come (the model's strided ``transpose(1, 2)`` views, no copy);
+    ``backward`` recomputes :func:`flash_attention_ref` chunk by chunk of
+    query rows and differentiates it. On CPU tensors the forward is the
+    plain version too (what the CPU tests drive)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        B, Hq, Sq, _ = q.shape
+        Sk = k.shape[2]
+        rows = _backward_rows(B, Hq, Sk)
+        f32 = torch.float32
+        dq = torch.empty_like(q) if need[0] else None
+        dk = torch.zeros(k.shape, dtype=f32, device=k.device) if need[1] \
+            else None
+        dv = torch.zeros(v.shape, dtype=f32, device=v.device) if need[2] \
+            else None
+        with torch.enable_grad():
+            # float32 leaves: the plain version computes in float32, so its
+            # gradients are float32 and round once, at the end
+            ks = k.detach().to(f32).requires_grad_(need[1])
+            vs = v.detach().to(f32).requires_grad_(need[2])
+            for lo in range(0, Sq, rows):
+                hi = min(lo + rows, Sq)
+                reach = min(hi, Sk) if ctx.causal else Sk
+                qs = q[:, :, lo:hi].detach().to(f32).requires_grad_(need[0])
+                o = flash_attention_ref(qs, ks[:, :, :reach], vs[:, :, :reach],
+                                        causal=ctx.causal, window=ctx.window,
+                                        q_offset=lo)
+                wrt = [t for t, n in zip((qs, ks, vs), need) if n]
+                got = iter(torch.autograd.grad(o, wrt,
+                                               do[:, :, lo:hi].to(f32)))
+                if need[0]:
+                    dq[:, :, lo:hi] = next(got)
+                if need[1]:
+                    dk += next(got)
+                if need[2]:
+                    dv += next(got)
+        if need[1]:
+            dk = dk.to(k.dtype)
+        if need[2]:
+            dv = dv.to(v.dtype)
+        return dq, dk, dv, None, None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int]) -> torch.Tensor:
+    """One kernel launch on checked CUDA inputs."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)

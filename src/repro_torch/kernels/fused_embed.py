@@ -14,6 +14,8 @@ plain PyTorch version (:func:`repro_torch.kernels.ref.fused_embed_ref`),
 a CUDA tensor launches the kernel on the current stream or raises. There
 is no fallback between the two. ``fused_embed.launch_count`` counts kernel
 launches (under a lock: the pipeline executor calls from several threads).
+It is never differentiated: on the card the wrapper raises where autograd
+records and an input requires grad.
 """
 from __future__ import annotations
 
@@ -125,6 +127,7 @@ def fused_embed(x: torch.Tensor, w: torch.Tensor, *, mean: float = 0.0,
     _check(x, w)
     if x.device.type == "cpu":
         return fused_embed_ref(x, w, mean, scale)
+    _build.refuse_grad("fused_embed", x, w)
     n, d = x.shape
     k = w.shape[1]
     out = torch.empty((n, k), dtype=x.dtype, device=x.device)

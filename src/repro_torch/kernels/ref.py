@@ -16,17 +16,18 @@ NEG_INF = -2.0 ** 30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. Query and
-    key positions both start at 0; GQA maps q head h to kv head
-    ``h // (Hq // Hkv)``."""
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. Key
+    positions start at 0, query positions at ``q_offset`` (0 is the
+    kernel's function; a chunk of query rows passes its first row's
+    position); GQA maps q head h to kv head ``h // (Hq // Hkv)``."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qf = q.reshape(B, Hkv, G, Sq, D).to(torch.float32) * (D ** -0.5)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.to(torch.float32))
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

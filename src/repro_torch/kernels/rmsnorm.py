@@ -15,6 +15,12 @@ The wrapper dispatches on where the input lies: a CPU tensor takes the
 plain PyTorch version (:func:`repro_torch.kernels.ref.rmsnorm_ref`), a
 CUDA tensor launches the kernel on the current stream or raises. There is
 no fallback between the two. ``rmsnorm.launch_count`` counts launches.
+
+Gradients: where autograd records and x or w requires grad, a CUDA call
+goes through :class:`RMSNormFunction`, whose forward is the kernel and
+whose backward recomputes the plain version and differentiates it (the
+reference's kernel has no backward either; it trains over plain jnp). A
+CPU call is the plain version itself, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -110,10 +116,44 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: [N, D]; w: [D] -> [N, D] in x's dtype (math in float32). Any N;
-    N = 0 returns [0, D] without a launch."""
+    N = 0 returns [0, D] without a launch. Differentiable (see the module
+    docstring)."""
     _check(x, w)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
+    if _build.records_grad(x, w):
+        return RMSNormFunction.apply(x, w, eps)
+    return _launch(x, w, eps)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The kernel forward with a plain backward: ``backward`` recomputes
+    :func:`rmsnorm_ref` on the saved x and w (saved as they are, no copy)
+    and returns its gradients. On CPU tensors the forward is the plain
+    version too (what the CPU tests drive)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_ref(x, w, eps) if x.device.type == "cpu" \
+            else _launch(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(need[0])
+            ws = w.detach().requires_grad_(need[1])
+            y = rmsnorm_ref(xs, ws, ctx.eps)
+            wrt = [t for t, n in zip((xs, ws), need) if n]
+            got = iter(torch.autograd.grad(y, wrt, dy))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """One kernel launch on checked CUDA inputs."""
     n, d = x.shape
     y = torch.empty_like(x)
     if n == 0 or d == 0:

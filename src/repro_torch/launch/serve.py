@@ -21,7 +21,6 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import build_model
-from repro_torch.models.transformer import ENC_DEC_NOT_PORTED
 from repro_torch.pipeline import OpProfile, choose_batch_size
 from repro_torch.pipeline.backend import resolve_device
 from repro_torch.training import make_serve_step
@@ -120,7 +119,11 @@ def main(argv=None) -> int:
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encoder_decoder:
-        raise SystemExit(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
+        raise SystemExit(
+            f"{cfg.arch_id} is an encoder-decoder model: this launcher serves "
+            "decoder-only LMs. Serve it through "
+            "repro_torch.training.make_prefill_step / make_serve_step "
+            "(or EncDecModel.prefill with a max_len, then make_serve_step)")
     device = resolve_device(args.device)
     model = build_model(cfg, attn_impl="naive" if args.smoke else "chunked")
     params = model.init(torch.Generator(device=device).manual_seed(0))

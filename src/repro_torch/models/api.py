@@ -1,27 +1,30 @@
 """Model construction and random batches.
 
-Port of ``src/repro/models/api.py`` for the decoder-only LM (every family
-but enc-dec). Tokens are
-drawn by numpy from a seed (``jax.random`` has no counterpart), so a test
-can hand the same batch to both packages.
+Port of ``src/repro/models/api.py``. Batches are drawn by numpy from a
+seed (``jax.random`` has no counterpart), so a test can hand the same
+batch to both packages; the numbers differ from the reference's own
+``make_batch``. ``input_specs`` (the dry-run's stand-ins) waits for the
+dry-run's port.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.transformer import ENC_DEC_NOT_PORTED, LM
+from repro_torch.models.encdec import EncDecModel
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "chunked", *,
-                use_kernels: bool = True) -> LM:
-    """The decoder-only LM of every family but enc-dec (dense, moe, ssm,
-    hybrid), which raises ``NotImplementedError``."""
+                use_kernels: bool = True) -> Union[LM, EncDecModel]:
+    """``EncDecModel`` for an encoder-decoder config, else the decoder-only
+    ``LM`` (dense, moe, ssm, hybrid)."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
+        return EncDecModel(cfg, attn_impl=attn_impl, use_kernels=use_kernels)
     return LM(cfg, attn_impl=attn_impl, use_kernels=use_kernels)
 
 
@@ -29,11 +32,27 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                batch_override: int = 0,
                device: Optional[torch.device] = None
                ) -> Dict[str, torch.Tensor]:
-    """Random token batch ``{"tokens": [B, S] int64}`` from
-    ``numpy.random.default_rng(seed)``, on ``device`` (default CPU)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
+    """Random batch from ``numpy.random.default_rng(seed)`` on ``device``
+    (default CPU): ``{"tokens": [B, S]}``, or for an encoder-decoder
+    config ``{"frames": [B, S - S // 2, d_model]`` standard normal in
+    cfg.dtype, ``"tokens": [B, S // 2]}``, as the reference lays it out."""
     B = batch_override or shape.global_batch
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (B, shape.seq_len))
-    return {"tokens": torch.from_numpy(toks).to(device or "cpu")}
+    S = shape.seq_len
+    rng = np.random.default_rng(seed)
+    dev = device or "cpu"
+    if cfg.is_encoder_decoder:
+        se, sd = S - S // 2, S // 2
+        frames = rng.standard_normal((B, se, cfg.d_model)).astype(np.float32)
+        toks = rng.integers(0, cfg.vocab_size, (B, sd))
+        return {"frames": torch.from_numpy(frames).to(dev, dtype_of(cfg)),
+                "tokens": torch.from_numpy(toks).to(dev)}
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes for batch trees (tokens/frames sharded on batch)."""
+    if cfg.is_encoder_decoder:
+        return {"frames": ("batch", "seq", "act_embed"),
+                "tokens": ("batch", "seq")}
+    return {"tokens": ("batch", "seq")}

@@ -235,23 +235,23 @@ def decode_attention(q, k_cache, v_cache, index: int, *,
 # Full attention block (projections + rope + attention)
 # ---------------------------------------------------------------------------
 
+def head_proj(cfg, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] in cfg.dtype."""
+    B, S, _ = x.shape
+    return torch.matmul(x, w.to(dtype_of(cfg)).reshape(w.shape[0], -1)
+                        ).reshape(B, S, w.shape[1], w.shape[2])
+
+
 def _project(cfg, p: dict, x: torch.Tensor):
     """x [B, S, d] -> q [B,S,Hq,hd], k / v [B,S,Hkv,hd] in cfg.dtype."""
-    dt = dtype_of(cfg)
-    B, S, _ = x.shape
-
-    def proj(w):
-        return torch.matmul(x, w.to(dt).reshape(w.shape[0], -1)).reshape(
-            B, S, w.shape[1], w.shape[2])
-
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = (head_proj(cfg, x, p[n]) for n in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
         k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def _out_proj(cfg, p: dict, o: torch.Tensor) -> torch.Tensor:
+def out_proj(cfg, p: dict, o: torch.Tensor) -> torch.Tensor:
     wo = p["wo"].to(dtype_of(cfg))
     B, S = o.shape[:2]
     return torch.matmul(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
@@ -272,6 +272,41 @@ def _kernel_route(cfg, x: torch.Tensor, use_kernels: bool) -> bool:
     return True
 
 
+def attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: Optional[int] = None, impl: str = "chunked",
+           use_kernels: bool = True) -> torch.Tensor:
+    """Softmax attention, q [B, Sq, Hq, D] against k / v [B, Sk, Hkv, D],
+    positions from 0 for both (Sq may differ from Sk when not causal): the
+    flash kernel on the kernel route, else ``impl``'s plain version."""
+    if _kernel_route(cfg, q, use_kernels):
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               softcap=cfg.attn_logit_softcap)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             softcap=cfg.attn_logit_softcap)
+
+
+def decode_attend(cfg, q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, index: int, *,
+                  window: Optional[int] = None,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """One query token a row, q [B, 1, Hq, D], against caches
+    [B, W, Hkv, D] at absolute position ``index``: the decode kernel with
+    ``length = min(index + 1, W)`` on the kernel route, else the plain
+    slot mask."""
+    if _kernel_route(cfg, q, use_kernels):
+        B, _, Hq, D = q.shape
+        return decode_attention_kernel(
+            q.reshape(B, Hq, D), k_cache.transpose(1, 2),
+            v_cache.transpose(1, 2),
+            min(index + 1, k_cache.shape[1])).reshape(B, 1, Hq, D)
+    return decode_attention(q, k_cache, v_cache, index, window=window,
+                            softcap=cfg.attn_logit_softcap)
+
+
 def attn_apply(cfg, p: dict, x: torch.Tensor, *,
                positions: Optional[torch.Tensor], causal: bool = True,
                window: Optional[int] = None, impl: str = "chunked",
@@ -286,17 +321,9 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, *,
     if positions is not None:  # rope; None for non-positional (cross-attn)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if _kernel_route(cfg, x, use_kernels):
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal,
-                            window=window).transpose(1, 2)
-    elif impl == "naive":
-        o = naive_attention(q, k, v, causal=causal, window=window,
-                            softcap=cfg.attn_logit_softcap)
-    else:
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_logit_softcap)
-    out = _out_proj(cfg, p, o)
+    o = attend(cfg, q, k, v, causal=causal, window=window, impl=impl,
+               use_kernels=use_kernels)
+    out = out_proj(cfg, p, o)
     if kv_for_cache:
         return out, (k, v)
     return out, None
@@ -323,12 +350,6 @@ def attn_decode_apply(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
                          f"{W} slots (prefill with a larger max_len)")
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-    if _kernel_route(cfg, x, use_kernels):
-        B, _, Hq, D = q.shape
-        o = decode_attention_kernel(
-            q.reshape(B, Hq, D), k_cache.transpose(1, 2),
-            v_cache.transpose(1, 2), min(index + 1, W)).reshape(B, 1, Hq, D)
-    else:
-        o = decode_attention(q, k_cache, v_cache, index, window=window,
-                             softcap=cfg.attn_logit_softcap)
-    return _out_proj(cfg, p, o)
+    o = decode_attend(cfg, q, k_cache, v_cache, index, window=window,
+                      use_kernels=use_kernels)
+    return out_proj(cfg, p, o)

@@ -8,9 +8,13 @@ they are no-ops. RMSNorm runs through the port's ``rmsnorm`` kernel
 routes it to the kernel's plain version on any device (the plain route,
 used to hold the kernel route against on the card). The projections stay
 ``torch.matmul``, as the reference leaves them to XLA. ``cross_entropy``
-comes with the training slice.
+takes the gold logit with a ``gather`` where the reference contracts a
+one-hot (which keeps a sharded vocab dim sharded; on one card it would be
+a [B, S, V] tensor).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -162,3 +166,18 @@ def logits_from_hidden(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in float32: logits [..., V], integer labels [...];
+    with ``mask`` (same shape as labels) the masked sum over
+    ``max(mask.sum(), 1)``, as the reference."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -6,9 +6,14 @@ stacked layer dim is a Python loop that indexes the ``[L, ...]`` params;
 a hybrid walks its pattern *cycles* (params ``cycles/slot{i}`` stacked
 ``[nc, ...]``) and then the unrolled remainder (``rest{i}``), the
 reference's tree exactly, so :func:`repro_torch.convert.lm_params_from_numpy`
-carries a reference param tree across unchanged. Remat does not apply (no
-training here). Encoder-decoder models are a different class, still to
-port (ROADMAP Queue 1, item 1).
+carries a reference param tree across unchanged. Encoder-decoder models
+are a class of their own (:mod:`repro_torch.models.encdec`).
+
+Remat: where the reference wraps its scan body in ``jax.checkpoint``
+(``cfg.remat_policy``), the port wraps the same unit (a layer, or a
+hybrid's cycle) in ``torch.utils.checkpoint`` (:func:`remat`), but only
+while autograd records: under ``no_grad`` / ``inference_mode`` (serving)
+every unit is a plain call.
 
 Decode updates the caches in place: :meth:`LM.decode_step` writes the new
 token's key and value into ``state.kv`` and each recurrent layer's conv
@@ -24,18 +29,44 @@ kernel route against on the card.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.spec import init_params, stack_tree
 
-ENC_DEC_NOT_PORTED = ("encoder-decoder models are still to port (ROADMAP "
-                      "Queue 1, item 1)")
+# the matrix products without batch dims (a [.., d] activation against a
+# 2-D weight folds to one of these), which "dots" saves
+_MATMULS = frozenset([torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn: Callable, *args):
+    """``fn(*args)`` under the reference's remat policy while autograd
+    records: ``"none"`` is a plain call; ``"dots"`` saves the outputs of
+    matrix products without batch dims and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``); any other policy (``"full"``)
+    saves nothing and recomputes ``fn`` in the backward. Without autograd
+    recording it is a plain call whatever the policy."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 @dataclass
@@ -66,8 +97,6 @@ class LM:
 
     def __init__(self, cfg, attn_impl: str = "chunked", *,
                  use_kernels: bool = True):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(f"{cfg.arch_id}: {ENC_DEC_NOT_PORTED}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.use_kernels = use_kernels
@@ -200,6 +229,28 @@ class LM:
             raise ValueError(kind)
         return x, aux, cache
 
+    def _units(self, params) -> List[Tuple[List[Tuple[str, dict]], bool]]:
+        """:meth:`_layers` grouped as the reference's remat wraps them
+        (its scan body): (layers, wrapped) for each layer of a homogeneous
+        stack and each cycle of a hybrid; a hybrid's remainder layers run
+        one by one, unwrapped."""
+        layers = self._layers(params)
+        pat = self.cfg.block_pattern
+        if not pat:
+            return [([layer], True) for layer in layers]
+        n = len(pat)
+        nc = self.cfg.num_layers // n
+        return ([(layers[c * n:(c + 1) * n], True) for c in range(nc)]
+                + [([layer], False) for layer in layers[nc * n:]])
+
+    def _run(self, unit, x, positions, aux, collect_cache: bool):
+        caches = []
+        for kind, p in unit:
+            x, aux, c = self._apply_block(kind, p, x, positions, aux,
+                                          collect_cache)
+            caches.append((kind, c))
+        return x, aux, caches
+
     def hidden(self, params, tokens: torch.Tensor, *,
                collect_cache: bool = False):
         """tokens [B,S] -> hidden [B,S,D], aux (the MoE load-balance losses
@@ -211,16 +262,34 @@ class LM:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
-        for kind, p in self._layers(params):
-            x, aux, c = self._apply_block(kind, p, x, positions, aux,
-                                          collect_cache)
-            caches.append((kind, c))
+        for unit, wrapped in self._units(params):
+            run = functools.partial(self._run, unit)
+            x, aux, cs = (remat(cfg.remat_policy, run, x, positions, aux,
+                                collect_cache) if wrapped
+                          else run(x, positions, aux, collect_cache))
+            caches += cs
         x = self._norm(x, params["final_norm"])
         return x, aux, ({"layers": caches} if collect_cache else {})
 
     def apply(self, params, tokens: torch.Tensor):
         x, aux, _ = self.hidden(params, tokens)
         return L.logits_from_hidden(self.cfg, params["embed"], x), aux
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """Next-token cross entropy over ``batch["tokens"]`` [B, S] (and an
+        optional ``"mask"``), plus the MoE load-balance term
+        ``router_aux_coef * aux / attention layers``. As the reference, the
+        model runs the full sequence and the last position's logits are
+        dropped. Returns (loss, {"ce", "aux"})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        logits, aux = self.apply(params, tokens)
+        mask = batch.get("mask")
+        ce = L.cross_entropy(logits[:, :-1], tokens[:, 1:],
+                             None if mask is None else mask[:, 1:])
+        coef = cfg.moe.router_aux_coef if cfg.is_moe else 0.0
+        nl = max(1, sum(1 for k in self.kinds if k == "attn"))
+        return ce + coef * aux / nl, {"ce": ce, "aux": aux / nl}
 
     # ------------------------------------------------------------------
     # Decode caches

@@ -1,16 +1,108 @@
-"""Prefill / serve step functions.
+"""Train / eval / prefill / serve step functions.
 
-Port of ``src/repro/training/step.py`` (``make_prefill_step``,
-``make_serve_step``). There is no ``jit``: the steps run eagerly. The
-optimizer and the train step come with the training slice.
+Port of ``src/repro/training/step.py``. There is no ``jit``: the steps run
+eagerly. The train step differentiates ``model.loss`` with
+``torch.autograd.grad`` over the params' leaves (detached views that
+share their storage and require grad) where the reference takes
+``jax.value_and_grad``, and raises if any of them gets no gradient: a
+param cut off from the loss, or a kernel route that autograd cannot see,
+would otherwise train silently wrong.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch.training.optimizer import (AdamWState, OptimizerConfig,
+                                            apply_updates, tree_leaves,
+                                            tree_map)
+
+
+def _paths(tree, prefix: str = "") -> List[str]:
+    """Leaf paths (``"a/b"``) in sorted key order, as ``tree_map`` visits."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                        f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _loss_and_grads(model, params, batch
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """(loss, metrics), both detached, and the grads of the params' leaves
+    in ``tree_leaves`` order. Raises ``RuntimeError`` naming every leaf
+    that got no gradient."""
+    tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(tracked)
+    loss, metrics = model.loss(tracked, batch)
+    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    missing = [path for path, g in zip(_paths(params), grads) if g is None]
+    if missing:
+        raise RuntimeError(f"no gradient reached {len(missing)} params "
+                           f"({', '.join(missing[:8])}): they are cut off "
+                           "from the loss")
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def _micro_batches(batch: Dict[str, torch.Tensor], n: int) -> list:
+    """``batch`` cut along dim 0 into ``n`` equal micro-batches."""
+    rows = {v.shape[0] for v in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % n:
+        raise ValueError(f"batch rows {sorted(rows)} do not split into "
+                         f"{n} equal micro-batches")
+    size = next(iter(rows)) // n
+    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def make_train_step(model, opt_cfg: OptimizerConfig,
+                    accum_steps: int = 1) -> Callable:
+    """fwd + bwd + AdamW: ``(params, opt_state, batch) -> (new params, new
+    state, {"loss", model metrics, "grad_norm", "lr"})``. With
+    ``accum_steps > 1`` the batch is split into micro-batches run one after
+    another (gradient accumulation): their float32 grads are summed and
+    divided, the loss is their mean, the metrics are the last one's."""
+
+    def train_step(params, opt_state: AdamWState, batch):
+        if accum_steps <= 1:
+            loss, metrics, grads = _loss_and_grads(model, params, batch)
+        else:
+            gsum = lsum = None
+            for mb in _micro_batches(batch, accum_steps):
+                loss, metrics, g = _loss_and_grads(model, params, mb)
+                if gsum is None:        # 0 + g: the first sum is g itself
+                    gsum = [x.to(torch.float32) for x in g]
+                    lsum = loss.to(torch.float32)
+                else:
+                    for a, b in zip(gsum, g):
+                        a.add_(b.to(torch.float32))
+                    lsum = lsum + loss
+                del g
+            grads = [a.div_(accum_steps) for a in gsum]
+            loss = lsum / accum_steps
+        it = iter(grads)
+        grad_tree = tree_map(lambda p: next(it), params)
+        new_params, new_state, om = apply_updates(opt_cfg, params, grad_tree,
+                                                  opt_state)
+        return new_params, new_state, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, metrics = model.loss(params, batch)
+        return {"loss": loss, **metrics}
+
+    return eval_step
 
 
 def make_prefill_step(model) -> Callable:
     def prefill_step(params, batch):
+        if model.cfg.is_encoder_decoder:
+            return model.prefill(params, batch)
         return model.prefill(params, batch["tokens"])
 
     return prefill_step

@@ -543,3 +543,155 @@ def test_cuda_fused_embed_general_path(cuda_device, dtype, case):
         x = _randn((N, D), 9, cuda_device, dtype)
     _embed_check(x, torch.from_numpy(w).to(cuda_device), dtype,
                  staged=False)
+
+
+# -- the encoder-decoder shapes and the kernels' gradients ------------------
+# whisper-medium: 16 heads of 64, no GQA; cross-attention is non-causal
+# flash with Sq != Sk (the kernel masks from position 0 for q and kv
+# alike), cross decode reads the whole 1500-position encoder cache.
+# Gradients: rmsnorm and flash_attention go through their autograd
+# Functions (kernel forward, plain backward) where autograd records; f32
+# grads within atol 1e-5 of plain autograd's (the same float32 math, k and
+# v summed over query chunks in another order), bf16 at TOL; decode and
+# fused_embed refuse an input that requires grad.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(64, 1500), (1500, 64), (448, 1500),
+                                   (1500, 1500)])
+def test_cuda_flash_attention_cross_shapes(cuda_device, dtype, Sq, Sk):
+    q = _randn((2, Sq, 16, 64), Sq, cuda_device, dtype).transpose(1, 2)
+    k = _randn((2, Sk, 16, 64), Sk + 1, cuda_device, dtype).transpose(1, 2)
+    v = _randn((2, Sk, 16, 64), Sk + 2, cuda_device, dtype).transpose(1, 2)
+    before = flash_attention.launch_count
+    _flash_check(q, k, v, False, None, dtype)
+    assert flash_attention.launch_count == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [2, 32])
+@pytest.mark.parametrize("length", [1, 64, 1499, 1500])
+def test_cuda_decode_attention_cross_cache(cuda_device, dtype, B, length):
+    """G 1, D 64 against a 1500-position cache (whisper's cross decode
+    reads all 1500; its self decode any prefix)."""
+    q = _randn((B, 16, 64), 10, cuda_device, dtype)
+    kc = _randn((B, 1500, 16, 64), 11, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, 1500, 16, 64), 12, cuda_device, dtype).transpose(1, 2)
+    got = decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    _assert_close(got, decode_attention_ref(q, kc, vc, length), dtype,
+                  ATTN_TOL[dtype])
+
+
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: TOL[torch.bfloat16]}
+
+
+def _plain_grads(fn, inputs, dy):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D", [(64, 2560), (4096, 1024), (33, 80)])
+def test_cuda_rmsnorm_grads_match_plain_autograd(cuda_device, dtype, N, D):
+    x = _randn((N, D), N, cuda_device, dtype)
+    w = (_randn((D,), 3, cuda_device, torch.float32) * 0.1).to(dtype)
+    dy = _randn((N, D), 4, cuda_device, dtype)
+    want = _plain_grads(rmsnorm_ref, (x, w), dy)
+    before = rmsnorm.launch_count
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = rmsnorm(xs, ws)
+    assert y.grad_fn is not None and rmsnorm.launch_count == before + 1
+    got = torch.autograd.grad(y, (xs, ws), dy)
+    torch.cuda.synchronize()
+    assert rmsnorm.launch_count == before + 1       # a plain backward
+    for a, b in zip(got, want):
+        # the w gradient sums N rows: bound it relative to its size
+        _assert_close(a, b, dtype, GRAD_TOL[dtype] * max(
+            1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
+    (1, 32, 8, 1024, 1024, 80, True, 4096),
+    (1, 16, 16, 448, 1500, 64, False, None),
+    (1, 16, 16, 1500, 1500, 64, False, None),
+    (1, 8, 2, 300, 300, 128, True, 64)])
+def test_cuda_flash_attention_grads_match_plain_autograd(
+        cuda_device, dtype, B, Hq, Hkv, Sq, Sk, D, causal, window):
+    q = _randn((B, Sq, Hq, D), 1, cuda_device, dtype)
+    k = _randn((B, Sk, Hkv, D), 2, cuda_device, dtype)
+    v = _randn((B, Sk, Hkv, D), 3, cuda_device, dtype)
+    do = _randn((B, Hq, Sq, D), 4, cuda_device, dtype)
+
+    def ref(q, k, v):
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window)
+
+    want = _plain_grads(ref, (q, k, v), do)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launch_count
+    o = flash_attention(*(t.transpose(1, 2) for t in leaves), causal=causal,
+                        window=window)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention.launch_count == before + 1
+    for a, b in zip(got, want):
+        _assert_close(a, b, dtype, GRAD_TOL[dtype] * max(
+            1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_kernels_refuse_an_input_that_requires_grad(
+        cuda_device):
+    q = _randn((2, 8, 64), 1, cuda_device, torch.float32)
+    kc = _randn((2, 128, 2, 64), 2, cuda_device, torch.float32).transpose(1, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(q.requires_grad_(), kc, kc, 5)
+    x, w = _inputs(8, 16, 4)
+    xt = torch.from_numpy(x).to(cuda_device).requires_grad_()
+    wt = torch.from_numpy(w).to(cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_embed(xt, wt)
+    with torch.no_grad():           # not recording: each launches
+        decode_attention(q, kc, kc, 5)
+        fused_embed(xt, wt)
+    decode_attention(q.detach(), kc, kc, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "whisper-medium"])
+def test_cuda_model_grads_kernel_route_match_plain_route(cuda_device, arch):
+    """Smoke-size f32 model under full remat: every leaf's gradient within
+    1e-3 of the largest of its plain-route gradient, the launches those of
+    a forward and its recompute."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    cfg = smoke_config(arch).replace(remat_policy="full")
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    batch = make_batch(cfg, ShapeConfig("s", 256, 2, "train"), seed=1,
+                       device=cuda_device)
+    grads = {}
+    for use in (True, False):
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        before = (flash_attention.launch_count, rmsnorm.launch_count)
+        loss, _ = build_model(cfg, use_kernels=use).loss(tracked, batch)
+        grads[use] = torch.autograd.grad(loss, tree_leaves(tracked))
+        torch.cuda.synchronize()
+        if use:
+            n_attn = (cfg.num_layers if arch != "whisper-medium"
+                      else cfg.num_encoder_layers + 2 * cfg.num_layers)
+            n_norm = 0 if cfg.norm == "layernorm" else 4 * cfg.num_layers + 1
+            assert (flash_attention.launch_count - before[0],
+                    rmsnorm.launch_count - before[1]) == (2 * n_attn, n_norm)
+    for a, b in zip(grads[True], grads[False]):
+        assert a is not None
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

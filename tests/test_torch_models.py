@@ -251,14 +251,6 @@ def test_full_cache_decode_past_its_slots_raises():
             m.decode_step(params, state, toks[:, 8:9])
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        build_model(smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        make_batch(smoke_config(arch), ShapeConfig("s", 16, 2, "train"))
-
-
 # -- the MoE, SSM and hybrid families ----------------------------------------
 # olmoe (every block attention + MoE), mamba2 (every block SSM) and
 # recurrentgemma (cycles of rglru, rglru, attn over a 64-slot window). The
