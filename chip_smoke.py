@@ -44,6 +44,23 @@ Phases, each raising on failure (the script then exits non-zero):
    measured, trunk rows in the workers' ``ServerStats``, no worker death,
    redispatch, retry or failed batch. It logs wall seconds, rows/s,
    latency percentiles, coalescing and the launches of each round;
+6b. the multi-device tier: ``make_backends("torch", device_count=visible
+   + 1)`` clamps to the visible GPUs (one card: a plain ``TorchBackend``,
+   no mesh); ``MeshTorchBackend`` over every visible GPU and over
+   ``(cuda:0, cuda:0)`` runs the phase-4 table (2^20 x 16) in 2^16-row
+   chunks in all four trunk modes, each held to a single-device
+   ``TorchBackend`` and the numpy oracle at atol 1e-5, the linear mode's
+   ``fused_embed`` launches exactly shards x chunks; wall seconds against
+   the single device and ``device_ms`` of one shard's launch; then
+   ``calibrate`` through the 2-entry mesh (``device_count == 2``, both
+   rates measured), and a session whose pool is that mesh (reached through
+   ``repro_torch.launch.mesh.visible_devices``) runs phase 4's PREDICT and
+   one 32-request ``MorphingServer`` round, held to the numpy session and
+   server at 1e-5 (``stats().devices == 2``); then a 1-rank NCCL world
+   over a ``FileStore``: ``compressed_all_reduce`` of h2o-danube-1.8b's
+   first-layer gradients within one quantisation step (residuals too),
+   uncompressed exact, and a 1-stage ``gpipe_apply`` forward and backward
+   against the sequential run;
 7. LM path, h2o-danube-1.8b at full width and depth (random weights from
    ``--seed``), through ``repro_torch.models`` / ``repro_torch.launch.serve``:
    a float32 copy, B = 4, prompt 1024, 16 teacher-forced decode steps, and
@@ -129,6 +146,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -207,6 +225,8 @@ SERVE_REQUESTS = [f"PREDICT emb USING TASK t FROM reviews WHERE len > {c}"
                   for c in SERVE_CUTS] * 4
 SERVE_FAULT_SQL = "PREDICT emb USING TASK t FROM reviews WHERE len < 3"
 DISPATCH_WORKERS = 2
+# phase 6b: the mesh backend runs the SQL path's table in chunks of this
+MESH_CHUNK = 1 << 16
 RESULT_TIMEOUT_S = 600.0
 
 
@@ -459,6 +479,8 @@ def main_path(args, fused_embed):
                        ("predict", SQL_PREDICT)):
         t0 = time.perf_counter()
         want = ref.sql(sql).rows
+        if label == "predict":
+            predict_want = want
         log(f"numpy session query {label}: "
             f"{time.perf_counter() - t0:.4f} s")
         got = out[label][0].rows
@@ -479,7 +501,7 @@ def main_path(args, fused_embed):
             "model": rm.model_id, "K": int(rm.zoo_model.W.shape[1]),
             "stage_count": tb.stage_count,
             "world": {"sel": sel, "zoo": zoo, "table": table,
-                      "sample": sample}}
+                      "sample": sample, "predict_want": predict_want}}
 
 
 # -- phase 5: the quickstart query ------------------------------------------
@@ -713,7 +735,278 @@ def served_path(world, fused_embed, model_id, torch_device="cuda"):
             "devices": sess.devices, "cold_s": cold["secs"],
             "warm_s": warm["secs"], "numpy_s": rsecs, "rows": rows,
             "err": max(cold["err"], warm["err"], f_err, d_err),
-            "dispatch_start_s": start_s, "dispatch_s": d_secs}
+            "dispatch_start_s": start_s, "dispatch_s": d_secs,
+            "want": want, "hint": hint}
+
+
+# -- phase 6b: the multi-device tier -----------------------------------------
+
+def _by_mode(world, model_id):
+    """One zoo model of each trunk mode: the SQL path's resolved linear
+    model, and the first of each other mode in the 16-model zoo."""
+    from repro_torch.core import build_zoo
+    out = {"linear": next(m for m in world["zoo"] if m.name == model_id)}
+    for m in build_zoo(16, seed=0):
+        out.setdefault(m.mode, m)
+    return out
+
+
+def _embed_table(backend, zm, X, version):
+    """Every MESH_CHUNK-row chunk of X through ``backend.run_infer``
+    (staged and warmed up first): (features, wall seconds, launches)."""
+    from repro_torch.kernels.fused_embed import fused_embed
+    from repro_torch.pipeline.backend import InferSpec
+    from repro_torch.pipeline.batcher import BatcherStats
+
+    spec = InferSpec(kind="embed", task="t", col="x", out="f", table="m",
+                     version=version, model=SimpleNamespace(zoo_model=zm),
+                     stats=BatcherStats())
+    backend.stage(version, zm)
+    backend.run_infer(spec, {"x": X[:MESH_CHUNK]})
+    backend.synchronize()
+    fused_embed.launch_count = 0
+    t0 = time.perf_counter()
+    out = np.concatenate([backend.run_infer(spec, {"x": X[i:i + MESH_CHUNK]})
+                          ["f"] for i in range(0, len(X), MESH_CHUNK)])
+    backend.synchronize()
+    return out, time.perf_counter() - t0, fused_embed.launch_count
+
+
+def _max_diff(a, b, label):
+    check(a.shape == b.shape, f"{label}: shape {a.shape} != {b.shape}")
+    check(bool(np.all(np.isfinite(a))), f"{label}: not finite")
+    return float(np.abs(np.asarray(a, np.float64) - b).max())
+
+
+def mesh_path(world, model_id, predict_want, serve_want, hint, dev,
+              torch_device="cuda"):
+    """(a) the clamp of a too-wide pool; (b) MeshTorchBackend over every
+    visible GPU and over (cuda:0, cuda:0) at the SQL path's table, all
+    four trunk modes against TorchBackend and numpy; (c) calibration, the
+    SQL PREDICT and one served round through a 2-entry mesh session.
+    ``torch_device="cpu"`` rehearses it on the CPU, where only the launch
+    counts fail."""
+    import tempfile
+
+    import repro_torch.launch.mesh as mesh_mod
+    from repro_torch.engine import (AdmissionPolicy, EngineConfig,
+                                    MorphingServer, MorphingSession)
+    from repro_torch.engine.session import _calib_rows
+    from repro_torch.kernels.fused_embed import fused_embed
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.pipeline.backend import (MeshTorchBackend, TorchBackend,
+                                              make_backends)
+    from repro_torch.pipeline.cost import calibrate
+
+    n_vis = len(mesh_mod.visible_devices(torch_device))
+    cuda0 = torch.device(torch_device, 0)
+    # (a) a request past the visible GPUs clamps to them
+    pool = make_backends("torch", device_count=n_vis + 1,
+                         torch_device=torch_device)
+    if n_vis == 1:
+        check(type(pool["cuda"]) is TorchBackend and pool.mesh is None
+              and pool.device_count == 1,
+              f"clamp: {type(pool['cuda']).__name__}, mesh {pool.mesh}")
+    else:
+        check(type(pool["cuda"]) is MeshTorchBackend
+              and pool.device_count == n_vis, f"clamp: {pool.device_count}")
+    log(f"mesh clamp: device_count={n_vis + 1} asked, {n_vis} visible -> "
+        f"{type(pool['cuda']).__name__}, device_count={pool.device_count}, "
+        f"mesh={pool.mesh}")
+    del pool
+
+    # (b) the mesh backend at the SQL path's size, every trunk mode
+    X = world["table"]["emb"]
+    chunks = -(-len(X) // MESH_CHUNK)
+    meshes = {"all": MeshTorchBackend(device=torch_device),
+              "dup": MeshTorchBackend(ServingMesh((cuda0, cuda0)))}
+    res = {}
+    for mode, zm in _by_mode(world, model_id).items():
+        want = np.concatenate([zm.features(X[i:i + MESH_CHUNK])
+                               for i in range(0, len(X), MESH_CHUNK)])
+        single, s_secs, s_l = _embed_table(
+            TorchBackend(device=torch_device), zm, X, f"mesh-{mode}")
+        check(s_l == (chunks if mode == "linear" else 0),
+              f"{mode}: single device launched fused_embed {s_l} times")
+        for label, b in meshes.items():
+            got, secs, launches = _embed_table(b, zm, X, f"mesh-{mode}")
+            want_l = b.device_count * chunks if mode == "linear" else 0
+            check(launches == want_l, f"{mode} mesh {label}: {launches} "
+                  f"fused_embed launches, not {want_l}")
+            e_s = _max_diff(got, single, f"{mode} mesh {label} vs single")
+            e_o = _max_diff(got, want, f"{mode} mesh {label} vs numpy")
+            check(max(e_s, e_o) <= ROW_ATOL, f"{mode} mesh {label}: max abs "
+                  f"diff {e_s} vs single, {e_o} vs numpy")
+            res[(mode, label)] = {"secs": secs, "single_s": s_secs,
+                                  "launches": launches,
+                                  "shards": b.device_count}
+            log(f"mesh {label} {[str(d) for d in b.mesh.devices]} {mode} "
+                f"K={got.shape[1]}: {len(X)} rows in {chunks} chunks, "
+                f"{secs:.4f} s (single device {s_secs:.4f} s, split cost "
+                f"{secs / s_secs:.3f}x), launches={launches}, max abs diff "
+                f"{e_s:.3e} vs single, {e_o:.3e} vs numpy")
+    W = torch.from_numpy(_by_mode(world, model_id)["linear"].W).to(dev)
+    xs = torch.from_numpy(X[:MESH_CHUNK]).to(dev)
+    shard_ms, _ = device_ms(lambda: fused_embed(xs[:MESH_CHUNK // 2], W), 50)
+    chunk_ms, _ = device_ms(lambda: fused_embed(xs, W), 50)
+    log(f"mesh device_ms: fused_embed a shard ({MESH_CHUNK // 2} x 16 -> "
+        f"{W.shape[1]}) {shard_ms:.5f} ms, a whole chunk ({MESH_CHUNK} "
+        f"rows) {chunk_ms:.5f} ms")
+
+    # (c) calibration, the SQL path and a served round through the mesh
+    prof = calibrate(meshes["dup"], "cuda", rows=_calib_rows("cuda"))
+    check(prof.measured and prof.device_count == 2 and prof.flops_per_s > 0
+          and prof.device_flops_per_s > 0, f"mesh calibration: {prof}")
+    log(f"mesh calibrate (cuda:0, cuda:0): flops_per_s={prof.flops_per_s:.6e}"
+        f" device_flops_per_s={prof.device_flops_per_s:.6e} launch="
+        f"{prof.launch_latency_s:.6e} s device_count={prof.device_count}")
+    real = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda device_type="cuda": (
+        (cuda0, cuda0) if device_type == torch_device else real(device_type))
+    tmp = tempfile.TemporaryDirectory(prefix="mesh-")
+    try:
+        sess = MorphingSession(
+            selector=world["sel"], zoo=world["zoo"], root=Path(tmp.name),
+            config=EngineConfig(model_store="decoupled", backend="torch",
+                                devices=("cuda",), device_count=2,
+                                torch_device=torch_device,
+                                policy=AdmissionPolicy(
+                                    retry_limit=1, max_queue_rows=1 << 24)))
+    finally:
+        mesh_mod.visible_devices = real
+    try:
+        mb = sess.backends["cuda"]
+        check(sess.device_count == 2 and isinstance(mb, MeshTorchBackend)
+              and mb.mesh.devices == (cuda0, cuda0),
+              f"mesh session: device_count {sess.device_count}, {mb}")
+        check(sess.hw is not None and sess.hw["cuda"].measured
+              and sess.hw["cuda"].device_count == 2,
+              "mesh session: the mesh profile was not measured")
+        sess.register_table("reviews", world["table"])
+        sess.sql(CREATE_T)
+        rm = sess.resolve_task("t", world["sample"].X, world["sample"].y)
+        check(rm.model_id == model_id, f"mesh session resolved {rm.model_id}")
+        fused_embed.launch_count = 0
+        t0 = time.perf_counter()
+        got = sess.sql(SQL_PREDICT)
+        torch.cuda.synchronize()
+        p_secs = time.perf_counter() - t0
+        p_l = fused_embed.launch_count
+        check(p_l > 0 and p_l == 2 * got.report.batch_batches,
+              f"mesh PREDICT launches {p_l}, not 2 a chunk "
+              f"({got.report.batch_batches} chunks embedded)")
+        p_err = max(_max_diff(np.asarray(got.rows[c]),
+                              np.asarray(predict_want[c], np.float64),
+                              f"mesh PREDICT {c}") for c in predict_want)
+        check(p_err <= ROW_ATOL, f"mesh PREDICT differs from numpy by {p_err}")
+        log(f"mesh session PREDICT: {got.report.rows_in} rows in "
+            f"{p_secs:.4f} s, launches={p_l}, embed batches="
+            f"{got.report.batch_batches}, max abs diff vs numpy {p_err:.3e}")
+        scores, st, s_l, s_secs, srv = _serve_round(
+            lambda: MorphingServer(session=sess, nrows_hint=hint),
+            SERVE_REQUESTS, fused_embed, "mesh server")
+        _fault_free(st, "mesh server")
+        check(all(ln.device == "cuda" for ln in srv._lanes.values()),
+              f"mesh server lanes on "
+              f"{[ln.device for ln in srv._lanes.values()]}")
+        check(st.devices == 2 and st.mesh_rows_per_s > 0,
+              f"mesh server: devices {st.devices}, mesh_rows_per_s "
+              f"{st.mesh_rows_per_s}")
+        check(s_l > 0 and s_l == 2 * st.embed_batches,
+              f"mesh server launches {s_l}, not 2 a batch "
+              f"({st.embed_batches} embed batches)")
+        s_err = _same_scores(scores, serve_want, "mesh server vs numpy")
+        log(f"mesh server vs numpy server: max abs diff {s_err:.3e}, "
+            f"mesh_rows_per_s={st.mesh_rows_per_s:.1f}")
+    finally:
+        tmp.cleanup()
+    return {"b": res, "shard_device_ms": shard_ms, "chunk_device_ms": chunk_ms,
+            "chunks": chunks, "predict_s": p_secs, "predict_launches": p_l,
+            "serve_s": s_secs, "serve_launches": s_l,
+            "err": max(p_err, s_err)}
+
+
+def distributed_path(dev):
+    """(d) a 1-rank NCCL world over a FileStore: compressed_all_reduce of
+    h2o-danube-1.8b's first-layer gradients, and a 1-stage gpipe_apply
+    forward and backward against the sequential run. On a CPU ``dev`` (a
+    rehearsal) the world is gloo."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (compressed_all_reduce,
+                                         compression_ratio, gpipe_apply,
+                                         init_ef_state)
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_map_specs
+    from repro_torch.training.optimizer import tree_leaves
+
+    nccl = dev.type == "cuda"
+    check(dist.is_nccl_available() or not nccl, "torch.distributed has no NCCL")
+    g = torch.Generator(device=dev).manual_seed(5)
+    layer = build_model(get_config(LM_ARCH)).specs()["layers"]
+    grads = tree_map_specs(
+        lambda s: torch.randn(s.shape[1:], generator=g, device=dev) * 1e-3,
+        layer)
+    with tempfile.TemporaryDirectory(prefix="nccl-") as tmp:
+        dist.init_process_group(
+            "nccl" if nccl else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device())
+            if nccl else None)
+        try:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            red, ef = compressed_all_reduce(grads, init_ef_state(grads))
+            torch.cuda.synchronize(dev)
+            c_secs = time.perf_counter() - t0
+            plain, _ = compressed_all_reduce(grads, ef, enabled=False)
+            worst = 0.0
+            for gl, rl, el, pl in zip(tree_leaves(grads), tree_leaves(red),
+                                      tree_leaves(ef.residual),
+                                      tree_leaves(plain)):
+                step = float(gl.abs().max()) / 127.0
+                err = float((rl - gl).abs().max())
+                check(err <= step and float(el.abs().max()) <= step,
+                      f"compressed all-reduce: err {err}, residual "
+                      f"{float(el.abs().max())}, step {step}")
+                check(torch.equal(pl, gl), "uncompressed all-reduce moved")
+                worst = max(worst, err / step)
+            n = sum(x.numel() for x in tree_leaves(grads))
+            log(f"nccl 1 rank: compressed_all_reduce of {LM_ARCH} layer 0 "
+                f"({n} values) in {c_secs:.4f} s, worst error "
+                f"{worst:.4f} of a quantisation step, wire ratio "
+                f"{compression_ratio(grads):.4f}; uncompressed exact")
+
+            D, L, M, mb = 256, 2, 8, 4
+            Ws = (torch.randn((L, D, D), generator=g, device=dev)
+                  * (0.5 / D ** 0.5)).requires_grad_()
+            x = torch.randn((M, mb, D), generator=g, device=dev)
+
+            def stage(W, h):
+                for w in W:
+                    h = torch.tanh(h @ w)
+                return h
+            out = gpipe_apply(stage, Ws, x)
+            out.sum().backward()
+            g_pipe, Ws.grad = Ws.grad, None
+            want = torch.stack([stage(Ws, x[m]) for m in range(M)])
+            want.sum().backward()
+            f_err = float((out - want).abs().max().detach())
+            g_err = float((g_pipe - Ws.grad).abs().max())
+            g_max = float(Ws.grad.abs().max())
+            check(f_err <= 1e-6 and g_err <= 1e-5 * g_max,
+                  f"gpipe 1 stage: forward {f_err}, grads {g_err} of {g_max}")
+            log(f"nccl 1 rank: gpipe_apply {M} x {mb} x {D}, {L} layers: "
+                f"forward {f_err:.3e}, grads {g_err:.3e} (max |g| "
+                f"{g_max:.3e}) against the sequential run")
+        finally:
+            dist.destroy_process_group()
+    return {"compress_s": c_secs, "compress_worst_steps": worst}
 
 
 # -- phase 7: the LM path ---------------------------------------------------
@@ -1770,7 +2063,14 @@ def main() -> int:
     lm_worst = compare_lm_kernels(dev)
     mp = main_path(args, fused_embed)
     quickstart()
-    sp = served_path(mp.pop("world"), fused_embed, mp["model"])
+    world = mp.pop("world")
+    sp = served_path(world, fused_embed, mp["model"])
+    t0 = time.perf_counter()
+    ms = mesh_path(world, mp["model"], world["predict_want"], sp.pop("want"),
+                   sp["hint"], dev)
+    dp = distributed_path(dev)
+    log(f"phase 6b: {time.perf_counter() - t0:.2f} s")
+    del world
     lm = lm_path(args, dev)
     fam = lm_families(args, dev)
     wh = whisper_path(args, dev)
@@ -1784,6 +2084,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fused_embed.cu",
         "replaces": "src/repro/kernels/fused_embed.py:44",
         "launches": mp["launches"], "launches_served": sp["launches"],
+        "launches_mesh": {
+            "shards": 2, "chunks": ms["chunks"],
+            "launches": ms["b"][("linear", "dup")]["launches"],
+            "predict": ms["predict_launches"],
+            "served": ms["serve_launches"]},
         "max_abs_err": worst[torch.float32],
         "max_abs_err_bf16": worst[torch.bfloat16],
         **tm[(256, 16, mp["K"])], "design": EMBED_DESIGN,
@@ -1836,6 +2141,16 @@ def main() -> int:
         f"{sp['numpy_s']:.4f} s ({sp['rows']} rows a round, launches cold="
         f"{sp['launches']}), dispatch up {sp['dispatch_start_s']:.2f} s, "
         f"served {sp['dispatch_s']:.4f} s, max abs diff {sp['err']:.3e}")
+    dup, lin = ms["b"][("linear", "dup")], ms["b"][("linear", "all")]
+    log(f"mesh path: linear {dup['secs']:.4f} s over (cuda:0, cuda:0), "
+        f"{lin['secs']:.4f} s over {lin['shards']} visible, single device "
+        f"{dup['single_s']:.4f} s; a shard's fused_embed "
+        f"{ms['shard_device_ms']:.5f} ms on the device, a chunk's "
+        f"{ms['chunk_device_ms']:.5f} ms; session PREDICT "
+        f"{ms['predict_s']:.4f} s, server round {ms['serve_s']:.4f} s, max "
+        f"abs diff {ms['err']:.3e}; nccl compressed all-reduce "
+        f"{dp['compress_s']:.4f} s, worst {dp['compress_worst_steps']:.4f} "
+        "of a step")
     log(f"lm path: serve bf16 prefill {sv['prefill_s']:.4f} s, decode "
         f"{sv['decode_tok_s']:.1f} tok/s, launches {sv['launches']}; f32 "
         "max |logit - plain| (prefill/decode): " + ", ".join(

@@ -37,8 +37,9 @@ from repro_torch.engine.config import UNSET, EngineConfig
 from repro_torch.engine.plan import (CompileContext, LogicalPlan, PlanNode,
                                      compile_plan, optimize)
 from repro_torch.engine.sql import CreateTaskStmt, QueryStmt, encode_text, parse
-from repro_torch.pipeline.backend import (ExecutionBackend, NumpyBackend,
-                                          TorchBackend, make_backends)
+from repro_torch.pipeline.backend import (ExecutionBackend, MeshTorchBackend,
+                                          NumpyBackend, TorchBackend,
+                                          make_backends)
 from repro_torch.pipeline.batcher import BatcherStats
 from repro_torch.pipeline.cost import (HardwareProfile, OpProfile, calibrate,
                                        delta_staged_profile, load_profile_memo,
@@ -213,7 +214,14 @@ def _fast_profile(backend: ExecutionBackend, device: str,
     fresh probe instance of the same flavour is calibrated so the live
     backend's stage/compile counters stay untouched (its kernel launches
     do count in ``fused_embed.launch_count``)."""
-    if isinstance(backend, TorchBackend):
+    if isinstance(backend, MeshTorchBackend):
+        # a mesh profile is per (mesh devices, probe size): the aggregate
+        # rate the serving lanes size against depends on the devices the
+        # mesh spans. The probe shares the live mesh
+        key = ("torch-mesh", tuple(str(d) for d in backend.mesh.devices),
+               _calib_rows(device))
+        probe_fn = lambda: MeshTorchBackend(mesh=backend.mesh)  # noqa: E731
+    elif isinstance(backend, TorchBackend):
         # one profile per torch device and probe size: a CUDA card and the
         # CPU are different machines to the cost model, and a profile
         # probed at the small sizes cannot serve "cuda"

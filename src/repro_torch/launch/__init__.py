@@ -1,1 +1,2 @@
-"""Launchers. Port of ``src/repro/launch/`` (``serve`` only so far)."""
+"""Launchers and meshes. Port of ``src/repro/launch/`` (``serve``,
+``train`` and ``mesh``; ``dryrun`` is not ported yet)."""

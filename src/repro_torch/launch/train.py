@@ -11,7 +11,7 @@ otherwise; there is no CPU fallback:
 
 The flags are the reference's plus ``--device`` (default ``cuda``). Only
 ``--mesh none`` is ported: the host / single / multi meshes wait for the
-distributed slice (ROADMAP Queue 1). Weights are random, drawn from seed 0
+sharded-LM slice (ROADMAP Queue 1). Weights are random, drawn from seed 0
 on the device; batches come from ``SyntheticCorpus`` (numpy) and are moved
 to the device each step. A restored checkpoint (host tensors) is moved
 back to the device by the step.
@@ -99,8 +99,9 @@ def train(args: argparse.Namespace) -> TrainRun:
     """The training loop of :func:`main`, for ``parse_args``' flags."""
     if args.mesh != "none":
         raise SystemExit(f"--mesh {args.mesh}: only --mesh none is ported; "
-                         "the meshes wait for the distributed slice "
-                         "(ROADMAP Queue 1, distributed/ and launch/mesh.py)")
+                         "the training meshes wait for the sharded-LM slice "
+                         "(ROADMAP Queue 1: models that carry logical axes "
+                         "through DTensor)")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
     model = build_model(cfg, attn_impl="naive" if args.smoke else "chunked")

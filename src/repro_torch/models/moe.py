@@ -183,7 +183,7 @@ def moe_apply(cfg, p: dict, x: torch.Tensor, *, mesh: Optional[object] = None):
     if mesh is not None:
         raise NotImplementedError(
             "expert-parallel MoE over a mesh is still to port (ROADMAP "
-            "Queue 1, the distributed item)")
+            "Queue 1, the sharded-LM item)")
     if cfg.moe.impl == "dense":
         return moe_dense(cfg, p, x)
     return _LOCAL_IMPLS.get(cfg.moe.impl, moe_ragged_local)(cfg, p, x)

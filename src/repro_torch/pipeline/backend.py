@@ -13,7 +13,8 @@ three responsibilities for embed/predict operators:
   plus the fused mean score head as torch functions on one device. The
   linear mode routes through the hand-written fused normalize+project+tanh
   CUDA kernel (``repro_torch.kernels.fused_embed``), whose wrapper takes
-  its plain PyTorch version on the CPU;
+  its plain PyTorch version on the CPU. :class:`MeshTorchBackend` splits
+  each chunk's rows over a serving mesh's devices;
 - **shape bucketing** — ragged chunk row counts are padded to the next
   power of two and sliced on return, so a whole query sees at most
   O(log n) distinct shapes instead of one per distinct chunk length.
@@ -279,10 +280,13 @@ class TorchBackend(ExecutionBackend):
         return self._torch.tensor(np.asarray(arr, np.float32),
                                   device=self.device)
 
-    def _raw_forward(self, zoo_model) -> Tuple[str, int, int, Callable]:
+    def _raw_forward(self, zoo_model) -> Tuple[str, int, int, Callable,
+                                               Tuple[Any, ...]]:
         """Build the forward for one resolved model: ``(mode, in_dim,
-        out_dim, raw)`` where ``raw(X)`` maps a [B, in_dim] device tensor
-        to features with the weights already device-resident."""
+        out_dim, raw, weights)`` where ``raw(X, *weights)`` maps a
+        [B, in_dim] device tensor to features and the weights are staged
+        by :meth:`_put_weight`. Weights are arguments, not closure
+        captures, so the mesh subclass can pass each device its copy."""
         torch = self._torch
         from repro_torch.kernels.fused_embed import fused_embed
 
@@ -293,42 +297,54 @@ class TorchBackend(ExecutionBackend):
             inv_two_sig2 = 1.0 / (2.0 * float(zoo_model.sigma) ** 2)
             out_dim = int(zoo_model.centers.shape[0])
 
-            def raw(X):
+            def raw(X, centers):
                 d2 = ((X[:, None, :] - centers[None]) ** 2).sum(-1)
                 return torch.exp(-d2 * inv_two_sig2)
-            return mode, in_dim, out_dim, raw
+            return mode, in_dim, out_dim, raw, (centers,)
         W = self._put_weight(zoo_model.W)
         if mode == "relu":
             out_dim = int(zoo_model.W.shape[1])
 
-            def raw(X):
+            def raw(X, W):
                 return torch.clamp_min(X @ W, 0.0)
-            return mode, in_dim, out_dim, raw
+            return mode, in_dim, out_dim, raw, (W,)
         if mode == "proj1d":
             out_dim = 2 * int(zoo_model.W.shape[1])
 
-            def raw(X):
+            def raw(X, W):
                 Z = X @ W
                 return torch.tanh(torch.cat([Z, Z ** 2 - 1.0], dim=1))
-            return mode, in_dim, out_dim, raw
+            return mode, in_dim, out_dim, raw, (W,)
         # linear -> hand-written fused normalize+project+tanh kernel
         out_dim = int(zoo_model.W.shape[1])
 
-        def raw(X):
+        def raw(X, W):
             return fused_embed(X, W)
-        return mode, in_dim, out_dim, raw
+        return mode, in_dim, out_dim, raw, (W,)
+
+    def _compile_forward(self, raw: Callable, weights: Tuple[Any, ...]
+                         ) -> Tuple[Callable, Callable]:
+        """(features_fn, predict_fn): each maps a [B, in_dim] host tensor
+        to its device result. predict fuses the mean score head. The mesh
+        subclass overrides this to split the rows across its devices."""
+        torch, dev = self._torch, self.device
+
+        def features(X):
+            return raw(X.to(dev), *weights)
+
+        def predict(X):
+            return raw(X.to(dev), *weights).to(torch.float32).mean(dim=1)
+        return features, predict
 
     def stage(self, version: str, zoo_model) -> StagedModel:
         with self._lock:
             if version in self._staged:
                 return self._staged[version]
-        mode, in_dim, out_dim, raw = self._raw_forward(zoo_model)
+        mode, in_dim, out_dim, raw, weights = self._raw_forward(zoo_model)
+        features_fn, predict_fn = self._compile_forward(raw, weights)
         staged = StagedModel(
             version=version, mode=mode, in_dim=in_dim, out_dim=out_dim,
-            features_fn=raw,
-            # the mean score head fused into predict (reference: the
-            # staged predict_fn)
-            predict_fn=lambda X: raw(X).to(self._torch.float32).mean(dim=1))
+            features_fn=features_fn, predict_fn=predict_fn)
         with self._lock:
             if version not in self._staged:   # lost race: first stage wins
                 self._staged[version] = staged
@@ -380,7 +396,7 @@ class TorchBackend(ExecutionBackend):
                 staged.seen_shapes.add(key)
         if new_shape and self.on_compile is not None:
             self.on_compile(staged.version, key)
-        out = fn(self._torch.from_numpy(Xb).to(self.device))
+        out = fn(self._torch.from_numpy(Xb))
         return out[:n].cpu().numpy()
 
     def _features(self, spec: InferSpec, X: np.ndarray) -> np.ndarray:
@@ -441,6 +457,92 @@ class TorchBackend(ExecutionBackend):
         return buf.numel() * 4 / max(best, 1e-9)
 
 
+class MeshTorchBackend(TorchBackend):
+    """Data-parallel path over a serving mesh
+    (``repro_torch.launch.mesh.ServingMesh``), the counterpart of the
+    reference's ``MeshJaxBackend``.
+
+    Staging copies each trunk's weights once to every distinct device of
+    the mesh (``repro_torch.distributed.sharding.serving_rules``: every
+    weight axis replicated, the batch axis split over ``"data"``). A
+    bucket's rows split into ``device_count`` equal contiguous shards; each
+    shard is copied to its device and runs the same raw forward there (the
+    linear mode launches the CUDA ``fused_embed`` once a shard), and the
+    shards come back in order. Every copy and launch is issued before the
+    first copy back, and no device waits on another, so distinct devices
+    run their shards at once. A mesh that names one device twice runs its
+    shards one after another on it.
+
+    Shape bucketing rounds the power-of-two bucket up to a multiple of the
+    device count; for a power-of-two mesh the bucket already is one, so
+    ``compile_count`` matches the single-device backend's.
+    """
+
+    name = "torch-mesh"
+
+    def __init__(self, mesh=None, *, device_count: Optional[int] = None,
+                 device: str = "cuda", min_bucket: int = 32):
+        if mesh is None:
+            from repro_torch.launch import mesh as mesh_mod
+            dtype = _torch().device(device).type
+            n = (len(mesh_mod.visible_devices(dtype)) if device_count is None
+                 else int(device_count))
+            mesh = mesh_mod.make_serving_mesh(n, dtype)
+        super().__init__(device=str(mesh.devices[0]), min_bucket=min_bucket)
+        for d in mesh.distinct_devices():
+            resolve_device(str(d))
+        self.mesh = mesh
+        self.device_count = len(mesh.devices)
+
+    # -- mesh staging + execution -----------------------------------------
+    def _put_weight(self, arr) -> Dict[Any, Any]:
+        """One copy of the weight on each distinct mesh device."""
+        a = np.asarray(arr, np.float32)
+        return {d: self._torch.tensor(a, device=d)
+                for d in self.mesh.distinct_devices()}
+
+    def _compile_forward(self, raw: Callable, weights: Tuple[Any, ...]
+                         ) -> Tuple[Callable, Callable]:
+        torch, devs = self._torch, self.mesh.devices
+
+        def sharded(X, head):
+            rows = X.shape[0] // len(devs)
+            outs = []
+            for i, d in enumerate(devs):      # every copy and launch first
+                xs = X[i * rows:(i + 1) * rows].to(d, non_blocking=True)
+                outs.append(head(raw(xs, *(w[d] for w in weights))))
+            out = torch.empty((X.shape[0],) + tuple(outs[0].shape[1:]),
+                              dtype=outs[0].dtype)
+            for i, o in enumerate(outs):      # then the copies back, in order
+                out[i * rows:(i + 1) * rows].copy_(o)
+            return out
+
+        def features(X):
+            return sharded(X, lambda F: F)
+
+        def predict(X):
+            return sharded(X, lambda F: F.to(torch.float32).mean(dim=1))
+        return features, predict
+
+    def _bucket_for(self, n: int) -> int:
+        b = max(_next_pow2(n), self.min_bucket)
+        nd = self.device_count
+        return -(-b // nd) * nd
+
+    # -- calibration hooks -------------------------------------------------
+    def synchronize(self) -> None:
+        for d in self.mesh.distinct_devices():
+            if d.type == "cuda":
+                self._torch.cuda.synchronize(d)
+
+    def per_device_probe(self) -> TorchBackend:
+        """A fresh single-device backend on the mesh's first device, so
+        ``cost.calibrate`` can report the per-device rate beside the
+        mesh-aggregate rate it measures through this backend."""
+        return TorchBackend(device=str(self.mesh.devices[0]),
+                            min_bucket=self.min_bucket)
+
+
 _HOST_BACKEND: Optional[NumpyBackend] = None
 
 
@@ -457,16 +559,19 @@ class BackendPool(Dict[str, ExecutionBackend]):
     """Placement-aware ``{device annotation -> backend}`` pool.
 
     A dict (same mapping protocol as the reference's, so planner and
-    session lookups are untouched). The reference's pool also owns a mesh
-    dimension; the port's multi-GPU backend is not written yet, so every
-    pool spans one device (``device_count == 1``).
+    session lookups are untouched) that also owns the *mesh dimension* of
+    placement: ``device_count`` is how many devices the accelerator
+    annotation spans, and ``mesh`` the live serving mesh when it spans
+    more than one. A single-device pool carries no mesh and holds exactly
+    the single-device backends.
     """
 
     def __init__(self, mapping: Dict[str, ExecutionBackend], *,
-                 kind: str = "auto"):
+                 kind: str = "auto", device_count: int = 1, mesh=None):
         super().__init__(mapping)
         self.kind = kind
-        self.device_count = 1
+        self.device_count = int(device_count)
+        self.mesh = mesh
 
     def backend_for(self, device: str) -> ExecutionBackend:
         return self.get(device) or default_host_backend()
@@ -481,31 +586,54 @@ class BackendPool(Dict[str, ExecutionBackend]):
             b.fault_injector = injector
 
 
+def _mesh_torch_backend(device_count: int, torch_device: str
+                        ) -> Tuple[TorchBackend, int, Any]:
+    """(backend, effective device count, mesh) for the accelerator slot.
+
+    ``device_count`` is clamped to the devices of ``torch_device``'s type
+    that ``repro_torch.launch.mesh.visible_devices`` lists; a clamp to one
+    device gives the plain single-device :class:`TorchBackend` on
+    ``torch_device``, the path of a pool with no mesh."""
+    from repro_torch.launch import mesh as mesh_mod
+    dtype = _torch().device(torch_device).type
+    n = int(device_count)
+    if n > 1:
+        n = max(1, min(n, len(mesh_mod.visible_devices(dtype))))
+    if n == 1:
+        return TorchBackend(device=torch_device), 1, None
+    b = MeshTorchBackend(device_count=n, device=dtype)
+    return b, b.device_count, b.mesh
+
+
 def make_backends(kind: str = "auto",
                   devices: Tuple[str, ...] = ("host", "cuda"),
                   device_count: int = 1,
                   torch_device: str = "cuda") -> BackendPool:
-    """Build the backend pool.
+    """Build the placement-aware backend pool.
 
     'auto'  -> host: numpy, cuda: torch
     'numpy' -> every device runs the host numpy path
     'torch' -> every device runs the torch path on ``torch_device``
 
-    Unlike the reference, 'auto' never degrades: a torch backend that
-    cannot be built (no CUDA for ``torch_device='cuda'``) raises. Only
-    ``device_count == 1`` is ported; the multi-GPU backend comes later.
+    ``device_count > 1`` asks for a mesh: the torch-backed annotations are
+    served by one :class:`MeshTorchBackend` over the first
+    ``min(device_count, visible)`` devices of ``torch_device``'s type. The
+    numpy path has no devices to span, so a numpy pool always reports
+    ``device_count == 1``. Unlike the reference, 'auto' never degrades: a
+    torch backend that cannot be built (no CUDA for ``torch_device='cuda'``)
+    raises.
     """
-    if int(device_count) != 1:
-        raise ValueError(f"device_count={device_count}: only one device "
-                         "is ported so far")
     np_b = NumpyBackend()
     if kind == "numpy":
         return BackendPool({d: np_b for d in devices}, kind=kind)
     if kind == "torch":
-        tb = TorchBackend(device=torch_device)
-        return BackendPool({d: tb for d in devices}, kind=kind)
+        tb, n, mesh = _mesh_torch_backend(device_count, torch_device)
+        return BackendPool({d: tb for d in devices}, kind=kind,
+                           device_count=n, mesh=mesh)
     if kind != "auto":
         raise ValueError(f"unknown backend kind {kind!r}")
-    tb = TorchBackend(device=torch_device) if "cuda" in devices else None
+    tb, n, mesh = None, 1, None
+    if "cuda" in devices:
+        tb, n, mesh = _mesh_torch_backend(device_count, torch_device)
     return BackendPool({d: tb if d == "cuda" else np_b for d in devices},
-                       kind=kind)
+                       kind=kind, device_count=n, mesh=mesh)

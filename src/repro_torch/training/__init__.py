@@ -1,6 +1,6 @@
 """AdamW, step functions and fault tolerance. Port of
 ``src/repro/training/`` (``abstract_state`` / ``state_axes`` wait for the
-distributed slice)."""
+sharded-LM slice)."""
 from repro_torch.training.fault import (ElasticScaler, FaultInjector,
                                         InjectedFault, StragglerMonitor,
                                         TrainController)

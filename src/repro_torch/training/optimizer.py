@@ -13,7 +13,7 @@ order, in float32; the schedule and the bias corrections are float32
 tensors on the device, as in the reference.
 
 Not ported yet: ``abstract_state`` and ``state_axes``, which serve the mesh
-and the dry-run (ROADMAP Queue 1, the distributed item).
+and the dry-run (ROADMAP Queue 1, the sharded-LM item).
 """
 from __future__ import annotations
 

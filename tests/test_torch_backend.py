@@ -139,8 +139,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_multi_device_pool_is_not_ported():
-    with pytest.raises(ValueError):
-        make_backends("torch", device_count=2, torch_device="cpu")
+    # the CPU is one visible device: a 2-device request clamps to the plain
+    # single-device backend, no mesh (tests/test_torch_mesh.py has the mesh)
+    pool = make_backends("torch", device_count=2, torch_device="cpu")
+    assert pool.device_count == 1 and pool.mesh is None
+    assert type(pool["cuda"]) is TorchBackend
 
 
 # -- the fast calibration's probe sizes --------------------------------------

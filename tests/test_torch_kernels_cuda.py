@@ -695,3 +695,67 @@ def test_cuda_model_grads_kernel_route_match_plain_route(cuda_device, arch):
     for a, b in zip(grads[True], grads[False]):
         assert a is not None
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# -- the data-parallel mesh backend: one fused_embed launch a shard ----------
+
+def _mesh_run(backend, zm, X, version):
+    from types import SimpleNamespace
+
+    from repro_torch.pipeline.backend import InferSpec
+    from repro_torch.pipeline.batcher import BatcherStats
+    spec = InferSpec(kind="embed", task="t", col="x", out="f", table="m",
+                     version=version, model=SimpleNamespace(zoo_model=zm),
+                     stats=BatcherStats())
+    before = fused_embed.launch_count
+    out = backend.run_infer(spec, {"x": X})["f"]
+    torch.cuda.synchronize()
+    return out, fused_embed.launch_count - before
+
+
+def _mesh_models():
+    from repro_torch.core.zoo import ZooModel
+    rng = np.random.default_rng(7)
+    W = rng.standard_normal((16, 33)).astype(np.float32) * 0.3
+    out = {m: ZooModel(name=m, source_family="gauss", W=W, mode=m)
+           for m in ("linear", "relu", "proj1d")}
+    out["radial"] = ZooModel(
+        name="radial", source_family="ring", W=W, mode="radial",
+        centers=rng.standard_normal((12, 16)).astype(np.float32), sigma=1.3)
+    return out
+
+
+def _check_mesh(backend, n_rows):
+    from repro_torch.pipeline.backend import TorchBackend
+    X = np.random.default_rng(8).standard_normal((n_rows, 16)).astype(
+        np.float32)
+    single = TorchBackend(device="cuda")
+    for mode, zm in _mesh_models().items():
+        got, launches = _mesh_run(backend, zm, X, mode)
+        want, single_launches = _mesh_run(single, zm, X, mode)
+        assert launches == (backend.device_count if mode == "linear" else 0)
+        assert single_launches == (1 if mode == "linear" else 0)
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        np.testing.assert_allclose(got, zm.features(X), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1, 37, 4096, 70000])
+def test_cuda_mesh_backend_one_card_named_twice(cuda_device, n_rows):
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.pipeline.backend import MeshTorchBackend
+    dev0 = torch.device("cuda", 0)
+    backend = MeshTorchBackend(ServingMesh((dev0, dev0)))
+    assert backend.device_count == 2
+    _check_mesh(backend, n_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_backend_every_visible_gpu(cuda_device):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more visible GPUs")
+    from repro_torch.pipeline.backend import MeshTorchBackend
+    backend = MeshTorchBackend(device="cuda")
+    assert backend.device_count == torch.cuda.device_count()
+    assert len(backend.mesh.distinct_devices()) == backend.device_count
+    _check_mesh(backend, 70000)
