@@ -133,6 +133,21 @@ Phases, each raising on failure (the script then exits non-zero):
    forward and its remat recompute (48 flash_attention, 97 rmsnorm);
    step seconds, tokens/s, the model FLOPs share (6 N tokens over the
    step and 989 TFLOP/s) and peak memory;
+11. the sharded LM, on the (1, 1) ``("data", "model")`` device mesh of a
+   1-rank NCCL world: (a) one h2o-danube-1.8b train step (full width, 2
+   layers, float32, B 2 x 1024) from params placed by their logical axes
+   (``shard_params``, DTensor) under ``axis_rules``, against the same
+   step off the mesh: loss within 1e-4 and every param within 5e-3 (the
+   reference's ``tests/test_distributed.py`` bounds), the rmsnorm and
+   flash_attention launches equal to the step's off the mesh; (b)
+   olmoe-1b-7b's MoE block at full width (64 experts, top 8, d 2048),
+   float32, x (2, 512, 2048) x 0.5: ``moe_apply(mesh=...)`` (the
+   expert-parallel branch) against ``moe_dense``, y within 1e-4 and aux
+   within 1e-5, and its gradient against the single-device call's within
+   1e-4 of each leaf's max; (c) the launcher with ``--mesh host`` at phase
+   10's cell (bf16, 8 x 4096, accum 4) for 3 steps, in a 1-rank world it
+   starts itself: launches those of phase 10, step seconds (median of
+   steps 2-3), tokens/s and peak memory beside phase 10's;
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -202,6 +217,20 @@ TRAIN_GRAD_LM = (1, 1024)
 TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--batch", "8", "--seq",
               "4096", "--accum", "4", "--ckpt-every", "100", "--log-every",
               "1"]
+# phase 11: the sharded LM on a 1-rank NCCL world's (1, 1) ("data",
+# "model") mesh. (a) h2o-danube-1.8b at full width, SHARD_LAYERS layers,
+# float32, SHARD_BATCH: one train step on the mesh against the same step
+# off it, at the reference test's bounds (tests/test_distributed.py);
+# (b) olmoe-1b-7b's MoE block at full width, float32, x EP_X * 0.5:
+# moe_apply on the mesh (the EP branch) against moe_dense, y EP_Y_TOL and
+# aux EP_AUX_TOL, and its gradient against the single-device call's within
+# EP_GRAD_RTOL of the largest; (c) the launcher with --mesh host at phase
+# 10's cell, SHARD_TRAIN_STEPS steps
+SHARD_LAYERS, SHARD_BATCH = 2, (2, 1024)
+SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-4, 5e-3
+EP_ARCH, EP_X = "olmoe-1b-7b", (2, 512)
+EP_Y_TOL, EP_AUX_TOL, EP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
+SHARD_TRAIN_STEPS = 3
 FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
                 "f32: FMA")
 DECODE_DESIGN = ("split-KV + combine; bf16: mma.sync over the GQA group, "
@@ -1769,6 +1798,226 @@ def train_bf16(dev):
                                   for k, v in counts.items()}}
 
 
+# -- phase 11: the sharded LM -------------------------------------------------
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def sharded_step_check(dev, mesh, seed: int):
+    """(a) one h2o-danube-1.8b train step (full width, SHARD_LAYERS layers,
+    float32, SHARD_BATCH) on the mesh, from params placed by its logical
+    axes (``shard_params``), against the same step off the mesh: loss and
+    params at the reference test's bounds, launches equal."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules,
+                                                  rules_for_config,
+                                                  shard_params,
+                                                  tree_shardings)
+    from repro_torch.models import batch_axes, build_model
+    from repro_torch.training import (OptimizerConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = get_config(LM_ARCH).replace(num_layers=SHARD_LAYERS,
+                                      dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    B, S = SHARD_BATCH
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        seed + 11).integers(0, cfg.vocab_size, (B, S))).to(dev)}
+    step = make_train_step(model, OptimizerConfig(learning_rate=1e-3))
+    rules = rules_for_config(cfg)
+    runs = {}
+    for where in ("off", "mesh"):
+        with (axis_rules(rules, mesh=mesh) if where == "mesh"
+              else contextlib.nullcontext()):
+            p, b = params, batch
+            if where == "mesh":
+                p = shard_params(params, mesh, model.param_axes(), rules)
+                bp = tree_shardings(mesh, batch_axes(cfg), rules)
+                b = {k: distribute_tensor(v, mesh, bp[k], src_data_rank=None)
+                     for k, v in batch.items()}
+            opt = init_state(p)
+            _zero_counts()
+            t0 = time.perf_counter()
+            p1, _, out = step(p, opt, b)
+            loss = float(_whole(out["loss"]))
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            placed = [getattr(t, "placements", None) for t in tree_leaves(p1)]
+            check(placed == [getattr(t, "placements", None)
+                             for t in tree_leaves(p)],
+                  f"sharded step {where}: params left their placements")
+            runs[where] = (loss, [_whole(t) for t in tree_leaves(p1)], secs,
+                           counts)
+            del p1, opt, p, b
+    (lo, po, so, co), (lm, pm, sm, cm) = runs["off"], runs["mesh"]
+    loss_gap = abs(lo - lm)
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(po, pm))
+    want = train_launches(cfg, 1)
+    check(loss_gap < SHARD_LOSS_TOL and param_gap < SHARD_PARAM_TOL,
+          f"sharded step: loss gap {loss_gap}, param gap {param_gap}")
+    check(cm == co == want, f"sharded step launches {cm}, off the mesh {co},"
+          f" want {want}")
+    log(f"sharded step {LM_ARCH} f32 {SHARD_LAYERS} layers B={B} S={S} on "
+        f"a {tuple(mesh.shape)} mesh: loss {lm:.6f} vs off the mesh "
+        f"{lo:.6f} (gap {loss_gap:.3e}, bound {SHARD_LOSS_TOL}); max param "
+        f"gap {param_gap:.3e} (bound {SHARD_PARAM_TOL}); launches {cm} (off "
+        f"the mesh {co}); step {sm:.4f} s on the mesh, {so:.4f} s off")
+    del runs, po, pm, params
+    torch.cuda.empty_cache()
+    return {"loss_gap": loss_gap, "param_gap": param_gap, "launches": cm,
+            "mesh_s": sm, "off_s": so}
+
+
+def ep_check(dev, mesh, seed: int):
+    """(b) olmoe-1b-7b's MoE block at full width, float32: ``moe_apply``
+    on the mesh (the expert-parallel branch) against ``moe_dense``, and
+    the gradient of ``sum(y * ct) + 3 aux`` against the single-device
+    call's. The router and x come from a CPU generator (the routing, and
+    so the capacity drops, are then the same on every machine: none at
+    these sizes), the expert weights from the card's."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (PartitionSpec, axis_rules,
+                                                  make_rules,
+                                                  spec_placements)
+    from repro_torch.models import moe
+    from repro_torch.models.spec import init_params
+    cfg = get_config(EP_ARCH).replace(dtype="float32", param_dtype="float32")
+    p = init_params(moe.moe_specs(cfg),
+                    torch.Generator(device=dev).manual_seed(seed), "float32",
+                    dev)
+    g = torch.Generator().manual_seed(seed + 11)
+    p["router"] = (torch.randn(tuple(p["router"].shape), generator=g)
+                   * 0.02).to(dev)
+    x = (torch.randn((*EP_X, cfg.d_model), generator=g) * 0.5).to(dev)
+    ct = torch.randn(tuple(x.shape), generator=g).to(dev)
+    names = sorted(p)
+    with torch.no_grad():
+        yd, auxd = moe.moe_dense(cfg, p, x)
+
+    def grads(xs, ps, **kw):
+        y, aux = moe.moe_apply(cfg, dict(zip(names, ps)), xs, **kw)
+        loss = (y * ct).sum() + 3.0 * aux
+        return y, aux, torch.autograd.grad(loss, [xs] + ps)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, g1 = grads(x.detach().requires_grad_(),
+                     [p[k].detach().requires_grad_() for k in names])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    PS = PartitionSpec
+    specs = {"router": PS(None, None), "wi": PS("model", "data", None),
+             "wg": PS("model", "data", None), "wo": PS("model", None, "data")}
+    with axis_rules(make_rules(), mesh=mesh):
+        xd = distribute_tensor(x, mesh, spec_placements(
+            mesh, PS("data", None, None)), src_data_rank=None)
+        pd = [distribute_tensor(p[k], mesh, spec_placements(mesh, specs[k]),
+                                src_data_rank=None) for k in names]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux, ge = grads(xd.requires_grad_(),
+                           [t.requires_grad_() for t in pd], mesh=mesh)
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t0
+    y_err = float((_whole(y).detach() - yd).abs().max())
+    aux_err = abs(float(_whole(aux)) - float(auxd))
+    check(y_err < EP_Y_TOL and aux_err < EP_AUX_TOL,
+          f"EP moe: y {y_err} (bound {EP_Y_TOL}), aux {aux_err} (bound "
+          f"{EP_AUX_TOL})")
+    rel = {}
+    for name, a, b in zip(["x"] + names, ge, g1):
+        rel[name] = float((_whole(a) - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+    check(max(rel.values()) < EP_GRAD_RTOL, f"EP moe grads: {rel} of max |g|"
+          f" (bound {EP_GRAD_RTOL})")
+    log(f"EP moe {EP_ARCH} f32 x {tuple(x.shape)} on a {tuple(mesh.shape)} "
+        f"mesh: max |y - moe_dense| {y_err:.3e} (bound {EP_Y_TOL}), |aux - "
+        f"dense| {aux_err:.3e} (bound {EP_AUX_TOL}); grads against the "
+        f"single-device call, max |diff| / max |g|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f"; forward + backward {ep_s:.4f} s on the mesh, {one_s:.4f} s off")
+    del p, x, ct, yd, g1, ge, xd, pd, y
+    torch.cuda.empty_cache()
+    return {"y_err": y_err, "aux_err": aux_err, "grad_rel": rel,
+            "mesh_s": ep_s, "off_s": one_s}
+
+
+def sharded_train(dev):
+    """(c) bf16 h2o-danube-1.8b through the launcher with --mesh host at
+    phase 10's cell for SHARD_TRAIN_STEPS steps (the launcher starts its
+    own 1-rank NCCL world): finite losses, no failure or restart event,
+    launches those of phase 10; step seconds, tokens/s, peak memory."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launcher
+    cfg = get_config(LM_ARCH)
+    argv = list(TRAIN_ARGV)
+    argv[argv.index("--steps") + 1] = str(SHARD_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="train-ckpt-") as ckpt:
+        targs = train_launcher.parse_args(argv + ["--mesh", "host",
+                                                  "--ckpt-dir", ckpt])
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        run = train_launcher.train(targs)
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kinds = [k for k, _ in run.events]
+    check("failure" not in kinds and "restart" not in kinds,
+          f"sharded training events {run.events}")
+    check(run.step == targs.steps and all(np.isfinite(run.losses))
+          and all(np.isfinite(run.grad_norms)),
+          f"sharded training: {run.step} steps, losses {run.losses}")
+    want = train_launches(cfg, targs.steps * targs.accum)
+    check(counts == want, f"sharded training launches {counts} != {want}")
+    mesh_shape = tuple(run.params["final_norm"].device_mesh.shape)
+    tokens = targs.batch * targs.seq
+    steady = float(np.median(run.step_seconds[1:]))
+    log(f"train bf16 {LM_ARCH} --mesh host ({mesh_shape} mesh): "
+        f"{run.step} steps, step seconds "
+        f"{[round(x, 4) for x in run.step_seconds]} (steps 2-"
+        f"{run.step} median {steady:.4f} s, {tokens / steady:.1f} tok/s); "
+        f"losses {[round(x, 4) for x in run.losses]}; events {kinds}; "
+        f"launches {counts}; peak memory {peak:.2f} GiB")
+    del run
+    torch.cuda.empty_cache()
+    return {"steady_s": steady, "tok_s": tokens / steady, "peak_gib": peak,
+            "launches": counts, "mesh": mesh_shape}
+
+
+def sharded_path(args, dev):
+    """Phase 11: (a) and (b) on the (1, 1) mesh of a 1-rank NCCL world over
+    a FileStore, then (c) the launcher, which starts its own world."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="nccl-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            res["step"] = sharded_step_check(dev, mesh, args.seed)
+            res["ep"] = ep_check(dev, mesh, args.seed)
+        finally:
+            dist.destroy_process_group()
+    res["train"] = sharded_train(dev)
+    return res
+
+
 # -- phase 8: timing --------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -2075,6 +2324,9 @@ def main() -> int:
     fam = lm_families(args, dev)
     wh = whisper_path(args, dev)
     tr = training_path(args, dev)
+    t0 = time.perf_counter()
+    sh = sharded_path(args, dev)
+    log(f"phase 11: {time.perf_counter() - t0:.2f} s")
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
@@ -2114,7 +2366,8 @@ def main() -> int:
                  at_wide=lt["rmsnorm_wide"],
                  launches_families=fam_launches("rmsnorm"),
                  launches_train_step=tr["train"]["launches_per_step"][
-                     "rmsnorm"]),
+                     "rmsnorm"],
+                 launches_sharded_step=sh["step"]["launches"]["rmsnorm"]),
         lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
                  lt["flash_attention_prefill"], design=FLASH_DESIGN,
                  at_8192=lt["flash_attention_long"],
@@ -2123,6 +2376,8 @@ def main() -> int:
                  launches_families=fam_launches("flash_attention"),
                  launches_whisper=wh["serve"]["launches"]["flash_attention"],
                  launches_train_step=tr["train"]["launches_per_step"][
+                     "flash_attention"],
+                 launches_sharded_step=sh["step"]["launches"][
                      "flash_attention"]),
         lm_entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:72",
@@ -2180,6 +2435,15 @@ def main() -> int:
         f"{LM_ARCH} steady step {t['steady_s']:.4f} s, {t['tok_s']:.1f} "
         f"tok/s, model FLOPs share {t['mfu']:.4f}, peak {t['peak_gib']:.2f} "
         f"GiB, launches a step {t['launches_per_step']}")
+    st, ep, stt = sh["step"], sh["ep"], sh["train"]
+    log(f"sharded: {LM_ARCH} step on the (1, 1) mesh, loss gap "
+        f"{st['loss_gap']:.3e}, param gap {st['param_gap']:.3e}, launches "
+        f"{st['launches']}; EP {EP_ARCH} y {ep['y_err']:.3e}, aux "
+        f"{ep['aux_err']:.3e}, worst grad {max(ep['grad_rel'].values()):.3e}"
+        f"; --mesh host steady step {stt['steady_s']:.4f} s, "
+        f"{stt['tok_s']:.1f} tok/s, peak {stt['peak_gib']:.2f} GiB (--mesh "
+        f"none: {t['steady_s']:.4f} s, {t['tok_s']:.1f} tok/s, peak "
+        f"{t['peak_gib']:.2f} GiB)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,18 @@ from typing import Any, NamedTuple, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.training.optimizer import tree_leaves, tree_map
+
+
+def tree_map(fn, tree, *rest):
+    # imported at call time: the models import this package (sharding)
+    # and the optimizer imports the models
+    from repro_torch.training.optimizer import tree_map as tmap
+    return tmap(fn, tree, *rest)
+
+
+def tree_leaves(tree):
+    from repro_torch.training.optimizer import tree_leaves as leaves
+    return leaves(tree)
 
 
 class EFState(NamedTuple):

@@ -2,7 +2,8 @@
 
 Model code names tensor dims with *logical* axes ("batch", "embed",
 "q_heads", ...). A rule table maps logical names to physical mesh axes.
-Rules are installed with the ``axis_rules`` context manager.
+Rules are installed with the ``axis_rules`` context manager; when no rules
+are active (single-device runs) every annotation is a no-op.
 
 FSDP+TP layout:
   - params' embed dim            -> fsdp axes ("data",) or ("pod","data")
@@ -17,10 +18,15 @@ rules. :func:`to_placements` turns a spec into the DTensor ``Placement``
 of each mesh dim (``Shard(d)`` / ``Replicate()``); it is pure, so it needs
 no process group.
 
-Left out of the port: ``lshard`` (a sharding constraint inside the model:
-it waits for models that carry logical axes, in the sharded-LM slice),
-and ``axis_size`` / ``shard_map``, which bridge jax versions; a port
-caller reads a group's size with ``torch.distributed.get_world_size``.
+DTensor stands where the reference has GSPMD: a sharded param is a
+``DTensor`` (:func:`shard_params`), plain torch ops propagate its
+placements, and :func:`lshard` (the reference's sharding constraint)
+redistributes an activation to its logical axes' placements. Under
+``axis_rules(rules, mesh=DeviceMesh)`` a plain tensor that meets a DTensor
+counts as replicated (DTensor's ``implicit_replication``): the positions,
+masks and constants the model builds on every rank are the same on each.
+:func:`shard_map` stands where the reference has ``shard_map``: it runs a
+function on each rank's local shards through DTensor's ``local_map``.
 
 Port of ``src/repro/distributed/sharding.py``.
 """
@@ -28,9 +34,11 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -45,8 +53,13 @@ def current_mesh():
     return getattr(_state, "mesh", None)
 
 
+def _is_device_mesh(mesh) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
 @contextlib.contextmanager
-def axis_rules(rules: Dict[str, AxisVal], mesh=None):
+def _installed(rules, mesh):
     prev_r = getattr(_state, "rules", None)
     prev_m = getattr(_state, "mesh", None)
     _state.rules = rules
@@ -56,6 +69,46 @@ def axis_rules(rules: Dict[str, AxisVal], mesh=None):
     finally:
         _state.rules = prev_r
         _state.mesh = prev_m
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Dict[str, AxisVal], mesh=None):
+    """Install ``rules`` (and ``mesh``) for the block, in this thread. With
+    a ``DeviceMesh``, plain tensors mixed with DTensors count as
+    replicated inside it (entered once, by the outermost such block)."""
+    outer = not _is_device_mesh(current_mesh())
+    with _installed(rules, mesh), contextlib.ExitStack() as stack:
+        if _is_device_mesh(mesh) and outer:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            stack.enter_context(implicit_replication())
+        yield
+
+
+def carry_rules(fn: Callable) -> Callable:
+    """``fn`` run under the rules and mesh current where this is called,
+    in whatever thread calls it: a remat recompute runs in autograd's
+    device thread, and must place its tensors as the forward did."""
+    rules, mesh = _current(), current_mesh()
+    if rules is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with _installed(rules, mesh):
+            return fn(*args, **kwargs)
+    return run
+
+
+def axis_size(axis_name: str, mesh=None) -> int:
+    """The size of mesh axis ``axis_name`` of ``mesh`` (default: the
+    current mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise RuntimeError(f"axis_size({axis_name!r}): no mesh is current")
+    names = tuple(mesh.mesh_dim_names)
+    if axis_name not in names:
+        raise ValueError(f"axis {axis_name!r} is not in the mesh {names}")
+    return int(mesh.shape[names.index(axis_name)])
 
 
 # ---------------------------------------------------------------------------
@@ -253,3 +306,86 @@ def tree_shardings(mesh, axes_tree, rules: Dict[str, AxisVal]):
     """Map a tree of logical-axes tuples to ``mesh``'s placements."""
     return _map_axes(lambda axes: named_sharding(mesh, axes, rules),
                      axes_tree)
+
+
+# ---------------------------------------------------------------------------
+# DTensor: annotation, sharded params, shard-local functions
+# ---------------------------------------------------------------------------
+
+def lshard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Constrain ``x``'s sharding by logical axes: a DTensor under
+    ``axis_rules`` with a ``DeviceMesh`` is redistributed to the axes'
+    placements (a ``Partial`` sum is reduced on the way); anything else is
+    returned as it is, as the reference's is without rules."""
+    rules = _current()
+    if rules is None:
+        return x
+    if len(axes) != x.ndim:
+        raise ValueError(f"lshard: axes {axes} vs rank {x.ndim}")
+    mesh = current_mesh()
+    if not isinstance(x, DTensor) or not _is_device_mesh(mesh):
+        return x
+    want = to_placements(axes, rules, mesh.mesh_dim_names)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def spec_placements(mesh, spec: Sequence,
+                    partial: Sequence[str] = ()) -> Tuple:
+    """The placements of a tensor split as the physical ``spec`` says
+    (entry i: the mesh axis, or axes major first, that dim i splits over,
+    or ``None``) and holding a partial sum over the mesh axes ``partial``:
+    ``Shard(d)``, ``Partial()`` or ``Replicate()`` a mesh dim."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        for a in ((part,) if isinstance(part, str) else part or ()):
+            if a in names:
+                out[names.index(a)] = Shard(d)
+    for a in partial:
+        if a in names:
+            out[names.index(a)] = Partial()
+    return tuple(out)
+
+
+def _is_placements(spec) -> bool:
+    """One placement tuple (a spec), not a tuple of them."""
+    return all(isinstance(p, Placement) for p in spec)
+
+
+def shard_map(f: Callable, *, mesh, in_specs, out_specs,
+              in_grad_specs=None) -> Callable:
+    """``f`` run on each rank's local shards: the reference's
+    ``shard_map`` through DTensor's ``local_map``. Each spec is a tuple of
+    placements, one a mesh dim (:func:`spec_placements` builds one from
+    mesh axes), or ``None`` for an argument that is not a tensor;
+    ``out_specs`` is one spec, or a tuple of them when ``f`` returns a
+    tuple. DTensor arguments are redistributed to ``in_specs`` first;
+    ``f``'s outputs become DTensors of ``out_specs``. ``in_grad_specs``
+    gives the placements of an input's local gradient where it differs
+    from the input's (``None`` where it does not): a replicated input
+    whose local gradient is a partial sum, for one."""
+    from torch.distributed.tensor.experimental import local_map
+
+    grads = None if in_grad_specs is None else tuple(
+        i if g is None else g for g, i in zip(in_grad_specs, in_specs))
+    # local_map reads a tuple as one placement list an output
+    outs = list(out_specs) if _is_placements(out_specs) else out_specs
+    return local_map(f, out_placements=outs, in_placements=tuple(in_specs),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+def shard_params(tree, mesh, axes_tree, rules: Dict[str, AxisVal]):
+    """Every leaf of ``tree`` (nested dicts of full tensors, the same on
+    every rank) as a DTensor with the placements of its logical axes in
+    ``axes_tree``: each rank keeps its own shard, no data moves."""
+    plc = tree_shardings(mesh, axes_tree, rules)
+
+    def walk(t, pl):
+        if isinstance(t, dict):
+            return {k: walk(t[k], pl[k]) for k in t}
+        return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+    return walk(tree, plc)

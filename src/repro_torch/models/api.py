@@ -3,8 +3,8 @@
 Port of ``src/repro/models/api.py``. Batches are drawn by numpy from a
 seed (``jax.random`` has no counterpart), so a test can hand the same
 batch to both packages; the numbers differ from the reference's own
-``make_batch``. ``input_specs`` (the dry-run's stand-ins) waits for the
-dry-run's port.
+``make_batch``. ``input_specs`` gives the batch as ``meta`` tensors (the
+reference's ``ShapeDtypeStruct`` stand-ins: shape and dtype, no storage).
 """
 from __future__ import annotations
 
@@ -48,6 +48,24 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                 "tokens": torch.from_numpy(toks).to(dev)}
     toks = rng.integers(0, cfg.vocab_size, (B, S))
     return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: int = 0) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins of a batch (no allocation): ``{"tokens": [B, S]
+    int32}``, or ``frames`` [B, S - S // 2, d_model] in cfg.dtype and
+    ``tokens`` [B, S // 2] for an encoder-decoder config."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.is_encoder_decoder:
+        se, sd = S - S // 2, S // 2
+        return {"frames": meta((B, se, cfg.d_model), dtype_of(cfg)),
+                "tokens": meta((B, sd), torch.int32)}
+    return {"tokens": meta((B, S), torch.int32)}
 
 
 def batch_axes(cfg: ModelConfig) -> Dict[str, Any]:

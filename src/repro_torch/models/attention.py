@@ -21,8 +21,16 @@ Layouts are the reference's: activations ``[B, S, H, D]``, caches
 views (strides), so neither a per-layer transpose nor a per-step cache
 copy is made. :func:`attn_decode_apply` writes the new key and value into
 the cache in place where the reference returns an updated copy
-(``dynamic_update_slice``). The reference's ``lshard`` annotations are
-no-ops on one device and are dropped.
+(``dynamic_update_slice``).
+
+On a device mesh q, k and v are DTensors placed by the reference's
+``lshard`` annotations: batch split over the data axes, q heads over
+``"model"`` (``act_heads``), k / v heads replicated (``act_kv_heads``).
+:func:`attend` then runs on each rank's local heads (``shard_map``), the
+kernel route and the plain route alike, and hands each rank's q heads
+exactly the kv heads they read (:func:`kv_head_slice`): with GQA the
+kernel's head map (q head h reads kv head h // (Hq / Hkv)) holds for the
+local heads only once k and v are cut to that slice.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.distributed.sharding import lshard, shard_map
 from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
@@ -272,12 +282,69 @@ def _kernel_route(cfg, x: torch.Tensor, use_kernels: bool) -> bool:
     return True
 
 
+def kv_head_slice(q_heads: int, kv_heads: int, shards: int,
+                  index: int) -> slice:
+    """The kv heads that shard ``index`` of ``shards`` equal splits of
+    ``q_heads`` query heads reads under GQA (q head h reads kv head
+    h // (q_heads / kv_heads)). Each shard's q heads must read an equal
+    run of kv heads: the group is a multiple of the shard's heads (one kv
+    head a shard) or the shard's heads a multiple of the group."""
+    if q_heads % kv_heads or q_heads % shards or not 0 <= index < shards:
+        raise ValueError(f"{q_heads} q heads, {kv_heads} kv heads: no even "
+                         f"split into {shards} shards at {index}")
+    group, local = q_heads // kv_heads, q_heads // shards
+    if group % local and local % group:
+        raise ValueError(f"{local} q heads a shard straddle the GQA groups "
+                         f"of {group}")
+    lo = index * local // group
+    return slice(lo, lo + max(1, local // group))
+
+
+def _attend_sharded(cfg, q: DTensor, k, v, *, causal: bool,
+                    window: Optional[int], impl: str,
+                    use_kernels: bool) -> DTensor:
+    """:func:`attend` on each rank's local heads and rows. A mesh dim that
+    splits q's batch splits k's and v's too; one that splits q's heads
+    leaves k and v whole on the way in, and each rank cuts them to its
+    q heads' kv heads (their gradients are then partial sums over it);
+    any other split is gathered first."""
+    mesh = q.device_mesh
+    qp, kp, kg = [], [], []
+    for p in q.placements:
+        if isinstance(p, Shard) and p.dim in (0, 2):
+            qp.append(p)
+            kp.append(p if p.dim == 0 else Replicate())
+            kg.append(p if p.dim == 0 else Partial())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kg.append(Replicate())
+    head_dims = [i for i, p in enumerate(qp) if p == Shard(2)]
+    shards, index = 1, 0
+    coord = mesh.get_coordinate()
+    for i in head_dims:                 # mesh order: major first
+        shards, index = shards * mesh.size(i), index * mesh.size(i) + coord[i]
+    kv = kv_head_slice(q.shape[2], k.shape[2], shards, index)
+
+    def local(ql, kl, vl):
+        return attend(cfg, ql, kl[:, :, kv], vl[:, :, kv], causal=causal,
+                      window=window, impl=impl, use_kernels=use_kernels)
+
+    qp, kp, kg = tuple(qp), tuple(kp), tuple(kg)
+    return shard_map(local, mesh=mesh, in_specs=(qp, kp, kp), out_specs=qp,
+                     in_grad_specs=(None, kg, kg))(q, k, v)
+
+
 def attend(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: Optional[int] = None, impl: str = "chunked",
            use_kernels: bool = True) -> torch.Tensor:
     """Softmax attention, q [B, Sq, Hq, D] against k / v [B, Sk, Hkv, D],
     positions from 0 for both (Sq may differ from Sk when not causal): the
-    flash kernel on the kernel route, else ``impl``'s plain version."""
+    flash kernel on the kernel route, else ``impl``'s plain version. A
+    DTensor q runs on each rank's local shards (:func:`_attend_sharded`)."""
+    if isinstance(q, DTensor):
+        return _attend_sharded(cfg, q, k, v, causal=causal, window=window,
+                               impl=impl, use_kernels=use_kernels)
     if _kernel_route(cfg, q, use_kernels):
         return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
@@ -321,9 +388,13 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, *,
     if positions is not None:  # rope; None for non-positional (cross-attn)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = lshard(q, "batch", "seq", "act_heads", None)
+    k = lshard(k, "batch", "seq", "act_kv_heads", None)
+    v = lshard(v, "batch", "seq", "act_kv_heads", None)
     o = attend(cfg, q, k, v, causal=causal, window=window, impl=impl,
                use_kernels=use_kernels)
-    out = out_proj(cfg, p, o)
+    o = lshard(o, "batch", "seq", "act_heads", None)
+    out = lshard(out_proj(cfg, p, o), "batch", "seq", "act_embed")
     if kv_for_cache:
         return out, (k, v)
     return out, None

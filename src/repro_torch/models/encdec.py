@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.spec import P, init_params, stack_tree
+from repro_torch.models.spec import (P, abstract_params, axes_tree,
+                                     init_params, stack_tree)
 from repro_torch.models.transformer import layer_params, remat
 
 
@@ -105,6 +106,14 @@ class EncDecModel:
         """Random params from ``gen`` on ``device`` (default: the
         generator's device)."""
         return init_params(self.specs(), gen, self.cfg.param_dtype, device)
+
+    def abstract(self):
+        """``meta`` tensors of every param's shape and dtype."""
+        return abstract_params(self.specs(), self.cfg.param_dtype)
+
+    def param_axes(self):
+        """The params' logical axes, tree for tree."""
+        return axes_tree(self.specs())
 
     # ------------------------------------------------------------------
     def _norm(self, x, p):

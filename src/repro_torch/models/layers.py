@@ -2,23 +2,27 @@
 
 Port of ``src/repro/models/layers.py``. Functional style as in the
 reference: params are plain nested dicts of tensors with the reference's
-keys. The reference's ``lshard`` annotations are dropped: on one device
-they are no-ops. RMSNorm runs through the port's ``rmsnorm`` kernel
-(:mod:`repro_torch.kernels.rmsnorm`) unless ``use_kernels=False``, which
-routes it to the kernel's plain version on any device (the plain route,
-used to hold the kernel route against on the card). The projections stay
+keys, or DTensors on a device mesh. Activations carry the reference's
+``lshard`` annotations, no-ops without rules. RMSNorm runs through the
+port's ``rmsnorm`` kernel (:mod:`repro_torch.kernels.rmsnorm`) unless
+``use_kernels=False``, which routes it to the kernel's plain version on
+any device (the plain route, used to hold the kernel route against on the
+card); on a DTensor it runs on each rank's batch rows (``shard_map``),
+the norm weight gathered whole, as ``layernorm`` does. The projections stay
 ``torch.matmul``, as the reference leaves them to XLA. ``cross_entropy``
 takes the gold logit with a ``gather`` where the reference contracts a
-one-hot (which keeps a sharded vocab dim sharded; on one card it would be
-a [B, S, V] tensor).
+one-hot (on one card the one-hot would be a [B, S, V] tensor);
+vocab-sharded logits are gathered along the vocab first.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.distributed.sharding import lshard, shard_map
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models.spec import DTYPES, P
@@ -26,6 +30,47 @@ from repro_torch.models.spec import DTYPES, P
 
 def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Shard-local calls on DTensors
+# ---------------------------------------------------------------------------
+
+def _batch_rows(t: DTensor) -> Tuple:
+    """``t``'s placements with only the split of its dim 0 (the batch)
+    kept; every other split and any partial sum are made whole."""
+    return tuple(p if p == Shard(0) else Replicate() for p in t.placements)
+
+
+def _partial_where_split(pl: Tuple) -> Tuple:
+    return tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in pl)
+
+
+def _replicated(t, mesh):
+    """A plain tensor (the same on every rank) as a replicated DTensor."""
+    if t is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim)
+
+
+def batchwise(fn, xs: Tuple, ws: Tuple, n_out: int = 1):
+    """``fn(*xs, *ws)`` on each rank's own batch rows: a norm, or a
+    recurrent block's conv and scan, which run along the sequence. Every
+    x (dim 0 the batch) keeps the split of dim 0 that the first one has
+    and is made whole along every other dim (a partial sum reduced); each
+    w is gathered whole, its local gradient a partial sum over the
+    batch-split mesh dims. ``fn`` returns ``n_out`` tensors (one, or a
+    tuple), each with the batch at dim 0."""
+    mesh = xs[0].device_mesh
+    rows = _batch_rows(xs[0])
+    wp = (Replicate(),) * mesh.ndim
+    return shard_map(fn, mesh=mesh,
+                     in_specs=(rows,) * len(xs) + (wp,) * len(ws),
+                     out_specs=rows if n_out == 1 else (rows,) * n_out,
+                     in_grad_specs=(None,) * len(xs)
+                     + (_partial_where_split(rows),) * len(ws))(
+                         *(_replicated(x, mesh) for x in xs), *ws)
 
 
 # ---------------------------------------------------------------------------
@@ -46,10 +91,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         raise NotImplementedError("rmsnorm with a plain w scale: the port's "
                                   "kernel computes (1 + w) only, as every "
                                   "config's norm does")
-    x2 = x.reshape(-1, x.shape[-1])
-    y = (rmsnorm_kernel(x2.contiguous(), w, eps=eps) if use_kernels
-         else rmsnorm_ref(x2, w, eps))
-    return y.reshape(x.shape)
+
+    def local(x, w):
+        x2 = x.reshape(-1, x.shape[-1])
+        y = (rmsnorm_kernel(x2.contiguous(), w, eps=eps) if use_kernels
+             else rmsnorm_ref(x2, w, eps))
+        return y.reshape(x.shape)
+
+    if isinstance(x, DTensor):
+        return batchwise(local, (x,), (w,))
+    return local(x, w)
 
 
 def layernorm_spec(d: int) -> dict:
@@ -58,13 +109,18 @@ def layernorm_spec(d: int) -> dict:
 
 
 def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
-    mu = x.mean(dim=-1, keepdim=True)
-    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["w"].to(torch.float32))
-            + p["b"].to(torch.float32)).to(dt)
+    """On a DTensor, each rank's batch rows (see :func:`batchwise`)."""
+    def local(x, w, b):
+        dt = x.dtype
+        x = x.to(torch.float32)
+        mu = x.mean(dim=-1, keepdim=True)
+        var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps)
+        return (y * (1.0 + w.to(torch.float32)) + b.to(torch.float32)).to(dt)
+
+    if isinstance(x, DTensor):
+        return batchwise(local, (x,), (p["w"], p["b"]))
+    return local(x, p["w"], p["b"])
 
 
 def norm_apply(cfg, x: torch.Tensor, p, *,
@@ -125,7 +181,9 @@ def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     a = (F.gelu(g, approximate="tanh") if cfg.activation == "geglu"
          else F.silu(g))
-    return torch.matmul(a.to(dt) * h, p["wo"].to(dt))
+    h = a.to(dt) * h
+    h = lshard(h, *(("batch",) + ("seq",) * (h.ndim - 2) + ("act_mlp",)))
+    return torch.matmul(h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +199,30 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``tokens`` in cfg.dtype. A DTensor table is
+    gathered whole and each rank looks up its own tokens' rows."""
     dt = dtype_of(cfg)
-    x = p["embedding"][tokens].to(dt)
+    table = p["embedding"]
+    if isinstance(table, DTensor):
+        x = _sharded_lookup(table, tokens).to(dt)
+    else:
+        x = table[tokens].to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.embedding_multiplier != 1.0:  # x * 1 is x: one launch saved
         x = x * torch.tensor(cfg.embedding_multiplier, dtype=dt)
-    return x
+    return lshard(x, "batch", "seq", "act_embed")
+
+
+def _sharded_lookup(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    mesh = table.device_mesh
+    tokens = _replicated(tokens, mesh)
+    tp = _batch_rows(tokens)
+    return shard_map(lambda t, i: t[i], mesh=mesh,
+                     in_specs=((Replicate(),) * mesh.ndim, tp),
+                     out_specs=tp,
+                     in_grad_specs=(_partial_where_split(tp), None))(
+                         table, tokens)
 
 
 def logits_from_hidden(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -165,14 +240,19 @@ def logits_from_hidden(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding slots
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
-    return logits
+    axes = ("batch",) + ("seq",) * (logits.ndim - 2) + ("act_vocab",)
+    return lshard(logits, *axes)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL in float32: logits [..., V], integer labels [...];
     with ``mask`` (same shape as labels) the masked sum over
-    ``max(mask.sum(), 1)``, as the reference."""
+    ``max(mask.sum(), 1)``, as the reference. On a DTensor each rank sums
+    its own rows' NLL (the logits gathered along the vocab first) and the
+    sums are reduced over the ranks."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels, mask)
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
@@ -181,3 +261,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _sharded_cross_entropy(logits: DTensor, labels, mask) -> DTensor:
+    mesh = logits.device_mesh
+    rows = _batch_rows(logits)          # labels and mask split as these
+    sums = _partial_where_split(rows)
+
+    def local(logits, labels, mask):
+        logits = logits.to(torch.float32)
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, labels[..., None].long()).squeeze(-1)
+        if mask is None:
+            return nll.sum(), torch.tensor(float(nll.numel()),
+                                           device=nll.device)
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum(), mask.sum()
+
+    num, den = shard_map(local, mesh=mesh,
+                         in_specs=(rows, rows, None if mask is None else rows),
+                         out_specs=(sums, sums))(
+                             logits, _replicated(labels, mesh),
+                             _replicated(mask, mesh))
+    whole = (Replicate(),) * mesh.ndim
+    num, den = num.redistribute(mesh, whole), den.redistribute(mesh, whole)
+    if mask is not None:
+        den = torch.clamp(den, min=1.0)
+    return num / den

@@ -7,13 +7,22 @@ recurrence over the chunk states, which the reference runs as a
 recurrent update ``h = h * exp(dt * A) + dt * B ⊗ x``. Both share the
 parameters. The gated norm stays plain torch, as it is plain jnp in the
 reference; the block has no Pallas kernel, so it runs no port kernel.
+
+On a device mesh the projections are DTensor products and the conv, the
+scan and the gated norm run on each rank's batch rows with every head
+(the reference splits the heads over "model", ``act_ssm_heads``): the
+block's output is then constrained as the reference's is.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import dtype_of
+from repro_torch.distributed.sharding import lshard
+from repro_torch.models.layers import batchwise, dtype_of
 from repro_torch.models.spec import P
 
 
@@ -123,35 +132,54 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y.to(x.dtype), h
 
 
-def mamba_apply(cfg, p: dict, x: torch.Tensor, *,
-                return_state: bool = False):
-    """Full-sequence mamba block. x: [B,S,D] -> ([B,S,D], state or None);
-    the state is (conv window [B,K-1,C], SSM state [B,H,P,N] f32)."""
+_CORE = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm_w")
+
+
+def _mamba_core(cfg, zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip,
+                norm_w):
+    """From the input projection [B,S,E] to the gated-normed y [B,S,d_in],
+    with the conv window [B,K-1,C] and the final SSM state [B,H,P,N]."""
     s, d_in, nheads, conv_ch = _dims(cfg)
     dt_ = dtype_of(cfg)
-    zxbcdt = torch.matmul(x, p["in_proj"].to(dt_))
     z, xin, B, C, dtr = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xin, B, C], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(dt_),
-                                   p["conv_b"].to(dt_)).to(torch.float32)
+    conv_out = F.silu(_causal_conv(conv_in, conv_w.to(dt_),
+                                   conv_b.to(dt_)).to(torch.float32)
                       ).to(dt_)
     gn = s.n_groups * s.state_dim
     xin, B, C = torch.split(conv_out, [d_in, gn, gn], dim=-1)
-    bsz, S = x.shape[0], x.shape[1]
+    bsz, S = zxbcdt.shape[0], zxbcdt.shape[1]
     xh = xin.reshape(bsz, S, nheads, s.head_dim)
     Bg = B.reshape(bsz, S, s.n_groups, s.state_dim)
     Cg = C.reshape(bsz, S, s.n_groups, s.state_dim)
-    dt_pos = F.softplus(dtr.to(torch.float32) + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["a_log"])
+    dt_pos = F.softplus(dtr.to(torch.float32) + dt_bias[None, None, :])
+    A = -torch.exp(a_log)
     chunk = s.chunk if S % s.chunk == 0 and S >= s.chunk else S
     y, h_final = ssd_chunked(xh, dt_pos, A, Bg, Cg, chunk)
-    y = y + xh.to(y.dtype) * p["d_skip"][None, None, :, None].to(y.dtype)
+    y = y + xh.to(y.dtype) * d_skip[None, None, :, None].to(y.dtype)
     y = y.reshape(bsz, S, d_in)
-    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, z, norm_w, cfg.norm_eps)
+    return y, conv_in[:, -(s.conv_dim - 1):, :].to(dt_), h_final
+
+
+def mamba_apply(cfg, p: dict, x: torch.Tensor, *,
+                return_state: bool = False):
+    """Full-sequence mamba block. x: [B,S,D] -> ([B,S,D], state or None);
+    the state is (conv window [B,K-1,C], SSM state [B,H,P,N] f32). On a
+    DTensor the conv and the scan run on each rank's batch rows
+    (``batchwise``), the heads whole."""
+    dt_ = dtype_of(cfg)
+    zxbcdt = torch.matmul(x, p["in_proj"].to(dt_))
+    ws = tuple(p[n] for n in _CORE)
+    if isinstance(zxbcdt, DTensor):
+        y, conv_state, h_final = batchwise(
+            functools.partial(_mamba_core, cfg), (zxbcdt,), ws, n_out=3)
+    else:
+        y, conv_state, h_final = _mamba_core(cfg, zxbcdt, *ws)
     out = torch.matmul(y, p["out_proj"].to(dt_))
+    out = lshard(out, "batch", "seq", "act_embed")
     if return_state:
-        conv_state = conv_in[:, -(s.conv_dim - 1):, :]
-        return out, (conv_state.to(dt_), h_final)
+        return out, (conv_state, h_final)
     return out, None
 
 

@@ -14,14 +14,21 @@ product of decays in [0, 1], so nothing overflows, and a 512-token prefill
 takes 9 steps a layer. Decode is the O(1) update. The block wraps the
 recurrence with in / out projections, a short causal conv and a
 GeGLU-gated output branch, as the reference does. It has no Pallas
-kernel, so it runs no port kernel.
+kernel, so it runs no port kernel. On a device mesh the projections are
+DTensor products and the conv, gates and scan run on each rank's batch
+rows with the whole width (the reference splits the width over "model",
+``act_rnn``); the block's output is constrained as the reference's is.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import dtype_of
+from repro_torch.distributed.sharding import lshard
+from repro_torch.models.layers import batchwise, dtype_of
 from repro_torch.models.mamba2 import _causal_conv
 from repro_torch.models.spec import P
 
@@ -70,21 +77,42 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_apply(cfg, p: dict, x: torch.Tensor, *, return_state: bool = False):
-    """Full-sequence Griffin recurrent block. x: [B,S,D] -> ([B,S,D],
-    (conv window [B,k-1,W], h [B,W] f32) or None)."""
+_CORE = ("conv_w", "conv_b", "a_param", "w_rgate", "b_rgate", "w_igate",
+         "b_igate")
+
+
+def _rglru_core(cfg, xb, gb, *ws):
+    """The conv, gates, scan and output gate over the input branches
+    [B,S,W]: (y [B,S,W] f32, the conv window [B,k-1,W], the last h [B,W])."""
     dt = dtype_of(cfg)
-    xb = torch.matmul(x, p["in_x"].to(dt))
-    gb = torch.matmul(x, p["in_gate"].to(dt))
+    p = dict(zip(_CORE, ws))
+    k = p["conv_w"].shape[0]
     conv_in = xb
     xb = _causal_conv(xb, p["conv_w"].to(dt), p["conv_b"].to(dt))
     log_a, bix = _gates(p, xb)
     h = linear_scan(torch.exp(log_a), bix)
     y = h * F.gelu(gb.to(torch.float32), approximate="tanh")
+    return y, conv_in[:, -(k - 1):, :].to(dt), h[:, -1, :]
+
+
+def rglru_apply(cfg, p: dict, x: torch.Tensor, *, return_state: bool = False):
+    """Full-sequence Griffin recurrent block. x: [B,S,D] -> ([B,S,D],
+    (conv window [B,k-1,W], h [B,W] f32) or None). On a DTensor the conv
+    and the scan run on each rank's batch rows (``batchwise``), the width
+    whole."""
+    dt = dtype_of(cfg)
+    xb = torch.matmul(x, p["in_x"].to(dt))
+    gb = torch.matmul(x, p["in_gate"].to(dt))
+    ws = tuple(p[n] for n in _CORE)
+    if isinstance(xb, DTensor):
+        y, conv_state, h_last = batchwise(
+            functools.partial(_rglru_core, cfg), (xb, gb), ws, n_out=3)
+    else:
+        y, conv_state, h_last = _rglru_core(cfg, xb, gb, *ws)
     out = torch.matmul(y.to(dt), p["out"].to(dt))
+    out = lshard(out, "batch", "seq", "act_embed")
     if return_state:
-        k = p["conv_w"].shape[0]
-        return out, (conv_in[:, -(k - 1):, :].to(dt), h[:, -1, :])
+        return out, (conv_state, h_last)
     return out, None
 
 

@@ -5,8 +5,10 @@ dict of ``P`` specs; :func:`init_params` materializes tensors on a device
 from an explicit ``torch.Generator``. ``torch`` and ``jax.random`` give
 different numbers from one seed, so parity with the reference goes
 through :func:`repro_torch.convert.lm_params_from_numpy`, not through init.
-The axes stay as the reference names them; the port runs on one device and
-does not shard.
+:func:`axes_tree` gives the logical-axes tree that places each param on a
+device mesh (``repro_torch.distributed.sharding.shard_params``), and
+:func:`abstract_params` gives ``meta`` tensors, the port's
+``ShapeDtypeStruct``: shape and dtype, no storage.
 """
 from __future__ import annotations
 
@@ -86,6 +88,18 @@ def init_params(specs, gen: torch.Generator, default_dtype: str = "float32",
         return {k: walk(node[k]) for k in sorted(node)}
 
     return walk(specs)
+
+
+def abstract_params(specs, default_dtype: str = "float32"):
+    """``meta`` tensors of each spec's shape and dtype (no allocation)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype or default_dtype],
+                              device="meta"), specs)
+
+
+def axes_tree(specs):
+    """Tree of logical-axes tuples, matching the params tree."""
+    return tree_map_specs(lambda s: s.axes, specs)
 
 
 def stack_specs(spec: P, n: int, axis_name: str = "layers") -> P:

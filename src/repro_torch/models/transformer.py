@@ -26,6 +26,14 @@ reference's flat layer order (cycle0.slot0, cycle0.slot1, cycle1.slot0,
 ``use_kernels=False`` is the plain route: every kernel call goes to its
 plain PyTorch version on any device, which ``chip_smoke.py`` holds the
 kernel route against on the card.
+
+On a device mesh the params are DTensors placed by :meth:`LM.param_axes`
+(``repro_torch.distributed.sharding.shard_params``) and the forward runs
+under ``axis_rules(rules, mesh=mesh)``: plain ops propagate the
+placements, the residual stream is constrained to ``("batch",
+"residual_seq", "act_embed")`` after every block as in the reference, the
+kernels run on each rank's local shards, and MoE blocks run expert
+parallel over the current mesh.
 """
 from __future__ import annotations
 
@@ -37,10 +45,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import (carry_rules, current_mesh,
+                                              lshard)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
-from repro_torch.models.spec import init_params, stack_tree
+from repro_torch.models.spec import (abstract_params, axes_tree, init_params,
+                                     stack_tree)
 
 # the matrix products without batch dims (a [.., d] activation against a
 # 2-D weight folds to one of these), which "dots" saves
@@ -58,9 +69,11 @@ def remat(policy: str, fn: Callable, *args):
     matrix products without batch dims and recomputes the rest
     (``dots_with_no_batch_dims_saveable``); any other policy (``"full"``)
     saves nothing and recomputes ``fn`` in the backward. Without autograd
-    recording it is a plain call whatever the policy."""
+    recording it is a plain call whatever the policy. The recompute runs
+    under the sharding rules of the forward."""
     if policy == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    fn = carry_rules(fn)    # the recompute runs in autograd's thread
     if policy == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=functools.partial(
@@ -83,7 +96,7 @@ class DecodeState:
 
 def layer_params(stacked: dict, i: int) -> dict:
     """Layer ``i``'s params (views) from a tree of stacked ``[L, ...]``
-    tensors."""
+    tensors (DTensors too: their ``"layers"`` dim is never split)."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in stacked.items()}
 
@@ -145,6 +158,14 @@ class LM:
         """Random params from ``gen`` on ``device`` (default: the
         generator's device)."""
         return init_params(self.specs(), gen, self.cfg.param_dtype, device)
+
+    def abstract(self):
+        """``meta`` tensors of every param's shape and dtype."""
+        return abstract_params(self.specs(), self.cfg.param_dtype)
+
+    def param_axes(self):
+        """The params' logical axes, tree for tree."""
+        return axes_tree(self.specs())
 
     def _layers(self, params) -> List[Tuple[str, dict]]:
         """(kind, params) of every layer in order: for a hybrid, cycle by
@@ -210,7 +231,7 @@ class LM:
             x = x + _scaled(o, cfg.residual_multiplier)
             h2 = self._norm(x, p["norm2"])
             if cfg.is_moe:
-                o2, a = moe.moe_apply(cfg, p["moe"], h2)
+                o2, a = moe.moe_apply(cfg, p["moe"], h2, mesh=current_mesh())
                 aux = aux + a
             else:
                 o2 = L.mlp_apply(cfg, p["mlp"], h2)
@@ -227,6 +248,9 @@ class LM:
             x = x + L.mlp_apply(cfg, p["mlp"], h2)
         else:
             raise ValueError(kind)
+        # sequence-parallel residual annotation (no-op unless the
+        # 'residual_seq' rule maps to a mesh axis)
+        x = lshard(x, "batch", "residual_seq", "act_embed")
         return x, aux, cache
 
     def _units(self, params) -> List[Tuple[List[Tuple[str, dict]], bool]]:
@@ -415,7 +439,8 @@ class LM:
                 x = x + _scaled(o, cfg.residual_multiplier)
                 h2 = self._norm(x, p["norm2"])
                 if cfg.is_moe:
-                    o2, _ = moe.moe_apply(cfg, p["moe"], h2)
+                    o2, _ = moe.moe_apply(cfg, p["moe"], h2,
+                                          mesh=current_mesh())
                 else:
                     o2 = L.mlp_apply(cfg, p["mlp"], h2)
                 x = x + _scaled(o2, cfg.residual_multiplier)

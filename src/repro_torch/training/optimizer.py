@@ -12,8 +12,11 @@ place). Its per-leaf arithmetic is the reference's ``upd`` in the same
 order, in float32; the schedule and the bias corrections are float32
 tensors on the device, as in the reference.
 
-Not ported yet: ``abstract_state`` and ``state_axes``, which serve the mesh
-and the dry-run (ROADMAP Queue 1, the sharded-LM item).
+On a device mesh the params are DTensors and so is the state: each moment
+takes its param's placements (:func:`init_state`, :func:`state_axes`), so
+FSDP-sharded params have FSDP-sharded moments, as in the reference; the
+step counter stays a plain tensor, the same on every rank.
+:func:`abstract_state` gives the state as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.spec import DTYPES
 
@@ -63,15 +67,29 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def init_state(params, opt_dtype: str = "float32") -> AdamWState:
+    """Zero moments in ``opt_dtype``, each like its param (placements
+    included), and a zero step."""
     dt = DTYPES[opt_dtype]
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
     return AdamWState(
         torch.zeros((), dtype=torch.int32, device=device),
-        tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                 params),
-        tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                 params))
+        tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+        tree_map(lambda p: torch.zeros_like(p, dtype=dt), params))
+
+
+def abstract_state(abstract_params, opt_dtype: str = "float32"
+                   ) -> AdamWState:
+    """The state as ``meta`` tensors (no allocation)."""
+    dt = DTYPES[opt_dtype]
+    z = tree_map(lambda p: torch.empty(p.shape, dtype=dt, device="meta"),
+                 abstract_params)
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"), z, z)
+
+
+def state_axes(param_axes) -> AdamWState:
+    """The state's logical axes: each moment's are its param's."""
+    return AdamWState((), param_axes, param_axes)
 
 
 def lr_schedule(cfg: OptimizerConfig,
@@ -88,9 +106,13 @@ def lr_schedule(cfg: OptimizerConfig,
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in leaves))
+    """The float32 norm of every leaf together; a DTensor leaf's square
+    sum is reduced over the ranks (a plain scalar after)."""
+    def sq(leaf):
+        s = torch.sum(torch.square(leaf.to(torch.float32)))
+        return s.full_tensor() if isinstance(s, DTensor) else s
+
+    return torch.sqrt(sum(sq(leaf) for leaf in tree_leaves(tree)))
 
 
 def _clip_scale(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:

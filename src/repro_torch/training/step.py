@@ -7,12 +7,21 @@ share their storage and require grad) where the reference takes
 ``jax.value_and_grad``, and raises if any of them gets no gradient: a
 param cut off from the loss, or a kernel route that autograd cannot see,
 would otherwise train silently wrong.
+
+On a device mesh (params DTensors, the step run under ``axis_rules``)
+each gradient comes back in whatever placements autograd left it (a
+partial sum, for a weight whose rows the batch split), so it is
+redistributed to its param's placements (a reduce-scatter) before the
+norm, the clip and the update: what the reference's ``out_shardings``
+does. A micro-batch of a DTensor batch takes the reference's global rows
+and is split over the data axes as the batch is.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.training.optimizer import (AdamWState, OptimizerConfig,
                                             apply_updates, tree_leaves,
@@ -41,6 +50,8 @@ def _loss_and_grads(model, params, batch
         raise RuntimeError(f"no gradient reached {len(missing)} params "
                            f"({', '.join(missing[:8])}): they are cut off "
                            "from the loss")
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, DTensor) else g for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
@@ -52,8 +63,24 @@ def _micro_batches(batch: Dict[str, torch.Tensor], n: int) -> list:
         raise ValueError(f"batch rows {sorted(rows)} do not split into "
                          f"{n} equal micro-batches")
     size = next(iter(rows)) // n
-    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            for i in range(n)]
+    whole = {k: _gathered(v) for k, v in batch.items()}
+
+    def cut(k, i):
+        mb = whole[k][i * size:(i + 1) * size]
+        v = batch[k]
+        if isinstance(v, DTensor):      # the rows, split as the batch is
+            mb = mb.redistribute(v.device_mesh, v.placements)
+        return mb
+
+    return [{k: cut(k, i) for k in batch} for i in range(n)]
+
+
+def _gathered(v):
+    """A DTensor made whole on every rank (still a DTensor); else ``v``."""
+    if not isinstance(v, DTensor):
+        return v
+    return v.redistribute(v.device_mesh,
+                          (Replicate(),) * v.device_mesh.ndim)
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig,

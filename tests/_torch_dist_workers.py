@@ -139,3 +139,218 @@ def hang(rank, world):
         dist.barrier()
     else:
         time.sleep(600)
+
+
+# -- the sharded LM ----------------------------------------------------------
+
+def _counting(calls, layers, attn):
+    """Route the model's rmsnorm and flash calls through their
+    ``autograd.Function``s (the plain version on the CPU), counting calls
+    in ``calls``; returns a function that undoes it."""
+    import importlib
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    fl = importlib.import_module("repro_torch.kernels.flash_attention")
+    old = layers.rmsnorm_kernel, attn.flash_attention
+
+    def norm(x, w, eps):
+        assert not hasattr(x, "device_mesh"), "a DTensor reached rmsnorm"
+        calls["rmsnorm"] += 1
+        return rms.RMSNormFunction.apply(x, w, eps)
+
+    def flash(q, k, v, causal, window):
+        assert not hasattr(q, "device_mesh"), "a DTensor reached flash"
+        calls["flash_attention"] += 1
+        return fl.FlashAttentionFunction.apply(q, k, v, causal, window)
+
+    layers.rmsnorm_kernel, attn.flash_attention = norm, flash
+
+    def undo():
+        layers.rmsnorm_kernel, attn.flash_attention = old
+    return undo
+
+
+def sharded_lm(rank, world, arch, layers_n, params_np, tokens, moe_np, x_moe,
+               ct_moe, launcher_argv):
+    """Every sharded-LM case on one 4-rank world; rank 0's view of each
+    result (whole values, as numpy)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.sharding import (axis_rules, make_rules,
+                                                  shard_params,
+                                                  tree_shardings)
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import attention as attn
+    from repro_torch.models import batch_axes, build_model, layers
+    from repro_torch.models import moe
+    from repro_torch.training import (OptimizerConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_map
+
+    def whole(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().numpy()
+
+    out = {}
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rules = make_rules(shard_attn_heads=True)
+    cfg = smoke_config(arch).replace(num_layers=layers_n)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    for route in ("plain", "kernels", "remat"):
+        c = cfg.replace(remat_policy="full") if route == "remat" else cfg
+        m = build_model(c, attn_impl="naive",
+                        use_kernels=route != "plain")
+        calls = {"rmsnorm": 0, "flash_attention": 0}
+        undo = _counting(calls, layers, attn) if route == "kernels" else None
+        try:
+            params = lm_params_from_numpy(params_np)
+            step = make_train_step(m, OptimizerConfig(learning_rate=1e-3))
+            with axis_rules(rules, mesh=mesh):
+                sp = shard_params(params, mesh, m.param_axes(), rules)
+                bp = tree_shardings(mesh, batch_axes(c), rules)
+                sb = {k: distribute_tensor(v, mesh, bp[k], src_data_rank=None)
+                      for k, v in batch.items()}
+                p1, o1, m1 = step(sp, init_state(sp), sb)
+            mesh_calls = dict(calls)
+            for k in calls:
+                calls[k] = 0
+            q1, _, n1 = step(params, init_state(params), batch)
+        finally:
+            if undo:
+                undo()
+        out[route] = {
+            "loss": float(whole(m1["loss"])), "gnorm": float(
+                whole(m1["grad_norm"])),
+            "params": tree_map(whole, p1),
+            "placed": all(p.placements == s.placements for p, s in zip(
+                _leaves(p1), _leaves(sp))),
+            "moments_placed": all(p.placements == s.placements for p, s in
+                                  zip(_leaves(o1.m), _leaves(sp))),
+            "off_loss": float(n1["loss"]), "off_params": tree_map(whole, q1),
+            "calls": mesh_calls, "off_calls": dict(calls)}
+
+    # every other family: one step on the mesh against the step off it
+    out["families"] = {}
+    rng = np.random.default_rng(7)
+    for fam in FAMILY_ARCHS:
+        c = smoke_config(fam)
+        m = build_model(c, attn_impl="naive")
+        params = m.init(torch.Generator().manual_seed(0))
+        fb = {"tokens": torch.from_numpy(rng.integers(0, c.vocab_size,
+                                                      (4, 32)))}
+        if c.is_encoder_decoder:
+            fb["frames"] = torch.from_numpy(rng.standard_normal(
+                (4, 32, c.d_model)).astype(np.float32))
+        step = make_train_step(m, OptimizerConfig(learning_rate=1e-3))
+        q1, _, n1 = step(params, init_state(params), fb)
+        fr = make_rules(shard_attn_heads=c.shard_attn_heads)
+        with axis_rules(fr, mesh=mesh):
+            sp = shard_params(params, mesh, m.param_axes(), fr)
+            bp = tree_shardings(mesh, batch_axes(c), fr)
+            sb = {k: distribute_tensor(v, mesh, bp[k], src_data_rank=None)
+                  for k, v in fb.items()}
+            p1, _, m1 = step(sp, init_state(sp), sb)
+        out["families"][fam] = {
+            "loss": float(whole(m1["loss"])), "off_loss": float(n1["loss"]),
+            "gap": max(float(np.abs(whole(a) - whole(b)).max())
+                       for a, b in zip(_leaves(p1), _leaves(q1)))}
+
+    # expert parallel MoE: forward against moe_dense, gradient against the
+    # single-device gradient of the same function
+    mcfg = smoke_config("olmoe-1b-7b")
+    for shape in ((1, 4), (2, 2)):
+        em = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        plc = {"x": (Shard(0), Replicate()), "router": (Replicate(),) * 2,
+               "wi": (Shard(1), Shard(0)), "wg": (Shard(1), Shard(0)),
+               "wo": (Shard(2), Shard(0))}
+        p = {k: distribute_tensor(torch.from_numpy(v), em, plc[k],
+                                  src_data_rank=None).requires_grad_()
+             for k, v in moe_np.items()}
+        x = distribute_tensor(torch.from_numpy(x_moe), em, plc["x"],
+                              src_data_rank=None).requires_grad_()
+        with axis_rules(rules, mesh=em):
+            y, aux = moe.moe_apply(mcfg, p, x, mesh=em)
+            loss = (y * torch.from_numpy(ct_moe)).sum() + 3.0 * aux
+            grads = torch.autograd.grad(loss, [x] + [p[k] for k in
+                                                     sorted(p)])
+        out[f"ep{shape}"] = {"y": whole(y), "aux": float(whole(aux)),
+                             "y_placements": tuple(y.placements),
+                             "grads": [whole(g) for g in grads]}
+
+    # the launcher on the host mesh of this world
+    run = launcher.train(launcher.parse_args(launcher_argv + ["--mesh",
+                                                              "host"]))
+    out["launcher"] = {"losses": run.losses,
+                       "mesh": tuple(run.params["final_norm"].device_mesh
+                                     .shape)}
+    return out
+
+
+FAMILY_ARCHS = ("gemma-2b", "olmoe-1b-7b", "mamba2-370m",
+                "recurrentgemma-9b", "whisper-medium")
+
+
+def _leaves(tree):
+    from repro_torch.training.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def lshard_cases(rank, world):
+    """``lshard`` on DTensors over a (world, 1) mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed.sharding import (axis_rules, lshard,
+                                                  make_rules)
+    mesh = init_device_mesh("cpu", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    x = DTensor.from_local(torch.ones(2, 3, 4), mesh,
+                           (Replicate(), Replicate()))
+    h = DTensor.from_local(torch.ones(2, 3, 4, 5), mesh,
+                           (Replicate(), Replicate()))
+    part = DTensor.from_local(torch.full((2, 4), 6.0 / world), mesh,
+                              (Partial(), Replicate()))
+    out = {"no_rules_same": lshard(x, "batch", "seq", "act_embed") is x}
+    with axis_rules(make_rules(), mesh=mesh):
+        out["embed"] = tuple(lshard(x, "batch", "seq",
+                                    "act_embed").placements)
+        out["heads"] = tuple(lshard(h, "batch", "seq", "act_heads",
+                                    None).placements)
+        red = lshard(part, "batch", "act_embed")
+        out["partial_reduced"] = tuple(red.placements)
+        out["partial_value"] = float(red.full_tensor()[0, 0])
+        try:
+            lshard(x, "batch")
+            out["rank_error"] = ""
+        except ValueError as e:
+            out["rank_error"] = str(e)
+    return out
+
+
+def moe_one_rank(rank, world, cfgs, p_np, x_np):
+    """``moe_apply`` for each config on a (1, 1) mesh (the EP branch), and
+    with a serving mesh that has no "model" axis (the local path)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.sharding import axis_rules, make_rules
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.models import moe
+
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    p, x = lm_params_from_numpy(p_np), torch.from_numpy(x_np)
+    out = {}
+    for name, cfg in cfgs.items():
+        with axis_rules(make_rules(), mesh=mesh):
+            y, aux = moe.moe_apply(cfg, p, x, mesh=mesh)
+        ys, auxs = moe.moe_apply(cfg, p, x,
+                                 mesh=ServingMesh((torch.device("cpu"),)))
+        whole = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                 for t in (y, aux)]
+        out[name] = {"y": whole[0].numpy(), "aux": float(whole[1]),
+                     "dtensor": type(y).__name__,
+                     "serving_y": ys.numpy(), "serving_aux": float(auxs)}
+    return out

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import _torch_dist_workers as W  # noqa: E402
 from repro.configs import smoke_config as jsmoke  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.spec import init_params as jinit  # noqa: E402
@@ -123,14 +124,31 @@ def test_batched_decode_capacity_matches_reference():
     assert _err(got.numpy(), want) < Y_TOL
 
 
-def test_moe_apply_dispatches_on_impl_and_refuses_a_mesh():
+def test_moe_apply_dispatches_on_impl_and_refuses_a_mesh(tmp_path):
+    """Without a mesh each impl is the reference's; on a 1-rank (1, 1)
+    device mesh (a gloo group) ragged and batched take the EP branch,
+    which at one rank is the single-device call, and a mesh without a
+    "model" axis takes the local path; an object that is no mesh is
+    refused."""
+    cfgs, want = {}, {}
     for impl in IMPLS:
         jcfg, cfg, jp, p, x = _world(impl=impl)
-        want, _ = jmoe.moe_apply(jcfg, jp, jnp.asarray(x))
+        want[impl] = jmoe.moe_apply(jcfg, jp, jnp.asarray(x))
         got, _ = moe.moe_apply(cfg, p, torch.from_numpy(x))
-        assert _err(got.numpy(), want) < Y_TOL, impl
-    with pytest.raises(NotImplementedError):
+        assert _err(got.numpy(), want[impl][0]) < Y_TOL, impl
+        cfgs[impl] = cfg
+    with pytest.raises(TypeError, match="mesh"):
         moe.moe_apply(cfg, p, torch.from_numpy(x), mesh=object())
+    pn = jax.tree.map(np.asarray, jp)
+    out = W.run_group(W.moe_one_rank, 1, tmp_path, cfgs, pn, x,
+                      timeout=60.0)[0]
+    for impl, (y, aux) in want.items():
+        r = out[impl]
+        assert r["dtensor"] == ("Tensor" if impl == "dense" else "DTensor")
+        for got_y, got_aux in ((r["y"], r["aux"]),
+                               (r["serving_y"], r["serving_aux"])):
+            assert _err(got_y, y) < Y_TOL, impl
+            assert abs(got_aux - float(aux)) < AUX_TOL, impl
 
 
 def test_bf16_batched_runs_in_the_configs_dtype():

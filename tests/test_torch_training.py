@@ -470,10 +470,25 @@ def test_train_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("mesh", ["host", "single", "multi"])
 def test_train_launcher_refuses_a_mesh(mesh, tmp_path):
-    with pytest.raises(SystemExit, match="sharded-LM slice"):
-        train_launcher.main(["--arch", "gemma-2b", "--smoke", "--device",
-                             "cpu", "--mesh", mesh, "--ckpt-dir",
-                             str(tmp_path)])
+    """``--mesh host`` trains in a 1-rank world the launcher starts and
+    stops (a 1 x 1 mesh); the production meshes refuse a world that is
+    not their 256 / 512 ranks, and leave no process group behind."""
+    import torch.distributed as dist
+    base = ["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "32", "--ckpt-dir"]
+    argv = base + [str(tmp_path), "--mesh", mesh]
+    if mesh == "host":
+        run = train_launcher.train(train_launcher.parse_args(argv))
+        off = train_launcher.train(train_launcher.parse_args(
+            base + [str(tmp_path / "none")]))
+        assert run.params["final_norm"].device_mesh.shape == (1, 1)
+        np.testing.assert_allclose(run.losses, off.losses, rtol=0,
+                                   atol=1e-5)
+    else:
+        ranks = {"single": 256, "multi": 512}[mesh]
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+            train_launcher.main(argv)
+    assert not dist.is_initialized()
 
 
 def test_train_launcher_needs_cuda_unless_asked_for_the_cpu(tmp_path):
