@@ -149,6 +149,26 @@ Phases, each raising on failure (the script then exits non-zero):
    starts itself: launches those of phase 10, step seconds (median of
    steps 2-3), tokens/s and peak memory beside phase 10's;
 
+12. the dry run (``repro_torch.launch.dryrun``) against the card: (a)
+   h2o-danube-1.8b ``decode_32k`` at full shape on a 1-rank NCCL world's
+   (1, 1) mesh: ``lower_cell`` with the mesh swapped for it gives argument
+   bytes equal to the bytes of the params, cache and tokens placed on the
+   card (``memory_allocated`` grows by them, give or take the allocator's
+   512-byte rounding of each tensor); the real serve step on the kernel
+   route from a random cache gives the next tokens of the step off the
+   mesh, 24 ``decode_attention`` (through ``decode_attention_partial``)
+   and 49 ``rmsnorm`` launches a step; its device time beside the
+   record's memory term; (b) danube's train_4k, prefill_32k, decode_32k
+   and long_500k and olmoe-1b-7b's train_4k traced on fake CUDA tensors
+   over a 256-rank fake world: every roofline term positive, the useful
+   FLOPs ratio in (0, 1.5], olmoe's expert-parallel collectives recorded
+   (the experts' FSDP all-gathers and the all-reduce combine a layer),
+   danube decode_32k's argument bytes at most (a)'s / 16. Phase 3 also holds
+   ``decode_attention_partial`` over 1, 2 and 4 slices, merged by
+   ``combine_partials``, to the whole kernel (danube's and
+   recurrentgemma's shapes, a slice wholly past length included) and logs
+   the bf16 decode gap to the reference's rounded decode.
+
 The last three lines are the ``nvidia-smi`` name/power-limit line, one
 JSON object with the kernel table, and ``{"ok": true, "device": {...}}``.
 """
@@ -231,6 +251,24 @@ SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-4, 5e-3
 EP_ARCH, EP_X = "olmoe-1b-7b", (2, 512)
 EP_Y_TOL, EP_AUX_TOL, EP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
 SHARD_TRAIN_STEPS = 3
+# phase 12c: decode_attention_partial's check shapes (B, Hq, Hkv, W, D):
+# danube's decode_32k cell as phase 12a runs it (its global batch of 128,
+# the 4096 window: 1.3 GB of bf16 cache), 32 serving slots of danube, and
+# recurrentgemma's G 16 x D 256
+PARTIAL_SHAPES = ((128, 32, 8, 4096, 80), (32, 32, 8, 4096, 80),
+                  (8, 16, 1, 2048, 256))
+PARTIAL_F32_TOL, PARTIAL_LSE_TOL = 1e-5, 1e-3
+DECODE_GAP = {}                 # shape -> the bf16 decode gap (logged)
+# phase 12: the dry run. (a) DRY_ARCH's DRY_SHAPE at full shape on the
+# 1-rank world's (1, 1) mesh, DRY_STEPS decode steps; (b) DRY_CELLS traced
+# on a 256-rank fake world
+DRY_ARCH, DRY_SHAPE, DRY_STEPS = "h2o-danube-1.8b", "decode_32k", 4
+DRY_DECODE_LAUNCHES = 24        # one a layer, on the (1, 1) mesh's 1 rank
+DRY_CELLS = (("h2o-danube-1.8b", "train_4k"), ("h2o-danube-1.8b",
+             "prefill_32k"), ("h2o-danube-1.8b", "decode_32k"),
+             ("h2o-danube-1.8b", "long_500k"), ("olmoe-1b-7b", "train_4k"))
+DRY_USEFUL_MAX = 1.5
+ALLOC_ROUND = 512               # the caching allocator's rounding a tensor
 FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
                 "f32: FMA")
 DECODE_DESIGN = ("split-KV + combine; bf16: mma.sync over the GQA group, "
@@ -424,9 +462,106 @@ def compare_lm_kernels(dev):
                     f"B={B} W={W} length={length}"))
             log(f"compare decode_attention {tag} B={B} Hq={Hq} Hkv={Hkv} W={W}"
                 f" D={D}: max err {max(errs):.2e}")
+        compare_decode_partial(dev, dtype, randn, record)
+        if dtype == torch.bfloat16:
+            decode_bf16_gap(dev, randn)
     log("compare bf16, largest error beyond one ulp of the value: " + ", ".join(
         f"{n} {e:.3e}" for n, e in beyond_ulp.items()))
     return worst
+
+
+def compare_decode_partial(dev, dtype, randn, record):
+    """(phase 12c) ``decode_attention_partial`` over 1, 2 and 4 contiguous
+    slices of the cache, merged by ``combine_partials``, against the whole
+    ``decode_attention`` at danube's and recurrentgemma's decode shapes:
+    within one bf16 ulp plus ATTN_BF16_TOL, or PARTIAL_F32_TOL in f32; each
+    slice's o against the plain twin's at the attention bound and its lse
+    within PARTIAL_LSE_TOL. One length leaves the last slices wholly past
+    it: o = 0, lse = -inf."""
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention, decode_attention_partial)
+    from repro_torch.kernels.ref import decode_attention_partial_ref
+    tag = str(dtype)[6:]
+    atol = PARTIAL_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    for B, Hq, Hkv, W, D in PARTIAL_SHAPES:
+        q = randn((B, Hq, D), dtype)
+        kc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
+        vc = randn((B, W, Hkv, D), dtype).transpose(1, 2)
+        errs, lse_err, o_err, empty = [], 0.0, 0.0, 0
+        for length in (W, W - 7, W // 4 + 3):
+            whole = decode_attention(q, kc, vc, length)
+            for n in (1, 2, 4):
+                ws = W // n
+                os_, ls_ = [], []
+                for i in range(n):
+                    ks, vs = (c[:, :, i * ws:(i + 1) * ws] for c in (kc, vc))
+                    ln = max(0, min(length - i * ws, ws))
+                    o, lse = decode_attention_partial(q, ks, vs, ln)
+                    ro, rl = decode_attention_partial_ref(q, ks, vs, ln)
+                    torch.cuda.synchronize()
+                    if ln == 0:
+                        check(bool(torch.isneginf(lse).all())
+                              and not bool(o.abs().max() > 0),
+                              f"decode_attention_partial: a slice past "
+                              f"length {length} gave lse {lse.max()} and "
+                              f"|o| {o.abs().max()}")
+                        empty += 1
+                    else:
+                        e = float((lse - rl).abs().max())
+                        check(e <= PARTIAL_LSE_TOL, f"decode_attention_"
+                              f"partial {tag} lse err {e} at B={B} W={W} "
+                              f"slice {i} of {n}, length {length}")
+                        lse_err = max(lse_err, e)
+                        e, _, ok = _close(o, ro, torch.float32,
+                                          _attn_tol(dtype))
+                        check(ok, f"decode_attention_partial {tag} o err "
+                              f"{e} at B={B} W={W} slice {i} of {n}, "
+                              f"length {length}")
+                        o_err = max(o_err, e)
+                    os_.append(o)
+                    ls_.append(lse)
+                errs.append(record(
+                    "decode_attention", dtype,
+                    combine_partials(os_, ls_, dtype), whole, atol,
+                    f"partial B={B} W={W} {n} slices, length {length}"))
+        log(f"compare decode_attention_partial {tag} B={B} Hq={Hq} Hkv={Hkv}"
+            f" W={W} D={D} over 1/2/4 slices: max err vs the whole kernel "
+            f"{max(errs):.2e} (bound {atol} beyond one ulp in bf16); each "
+            f"slice vs the plain twin: max o err {o_err:.2e}, max lse err "
+            f"{lse_err:.2e}; {empty} slices wholly past length")
+
+
+def decode_bf16_gap(dev, randn):
+    """The bf16 decode gap: the kernel keeps scores and probabilities in
+    f32, the reference's model-level decode rounds the scaled q and the
+    probabilities to the cache dtype (``models.attention.
+    decode_attention``). Logged at danube's and recurrentgemma's decode
+    shapes, a full window, beside the kernel's gap to the f32 plain
+    version."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.attention import \
+        decode_attention as rounded_decode
+    for B, Hq, Hkv, W, D in PARTIAL_SHAPES:
+        q = randn((B, 1, Hq, D), torch.bfloat16)
+        kc = randn((B, W, Hkv, D), torch.bfloat16)
+        vc = randn((B, W, Hkv, D), torch.bfloat16)
+        got = decode_attention(q.reshape(B, Hq, D), kc.transpose(1, 2),
+                               vc.transpose(1, 2), W).float()
+        rounded = rounded_decode(q, kc, vc, W - 1, window=W).reshape(
+            B, Hq, D).float()
+        f32 = decode_attention_ref(q.reshape(B, Hq, D), kc.transpose(1, 2),
+                                   vc.transpose(1, 2), W).float()
+        torch.cuda.synchronize()
+        gap = (got - rounded).abs()
+        ulps = gap / (BF16_RTOL * rounded.abs()).clamp(min=1e-30)
+        log(f"bf16 decode gap B={B} Hq={Hq} Hkv={Hkv} W={W} D={D}: kernel vs "
+            f"the reference's rounded decode max {float(gap.max()):.3e} "
+            f"(mean {float(gap.mean()):.3e}, median "
+            f"{float(ulps.median()):.2f} ulp of the value, max |value| "
+            f"{float(rounded.abs().max()):.3e}); kernel vs f32 plain max "
+            f"{float((got - f32).abs().max()):.3e}")
+        DECODE_GAP[(B, Hq, Hkv, W, D)] = float(gap.max())
 
 
 # -- phase 4: the SQL path --------------------------------------------------
@@ -2018,6 +2153,238 @@ def sharded_path(args, dev):
     return res
 
 
+# -- phase 12: the dry run against the card ---------------------------------
+
+def _nbytes(tree) -> int:
+    from repro_torch.launch.dryrun import _leaves
+    from torch.distributed.tensor import DTensor
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for t in _leaves(tree))
+
+
+def _tensor_count(tree) -> int:
+    from repro_torch.launch.dryrun import _leaves
+    return len(_leaves(tree))
+
+
+def dry_card_cell(dev, mesh, seed: int):
+    """(a) h2o-danube-1.8b decode_32k at full shape on the (1, 1) mesh:
+    ``lower_cell`` with the mesh swapped for it gives argument bytes equal
+    to the bytes of the params, cache and tokens placed on the card (and
+    ``memory_allocated`` grows by them, give or take the allocator's
+    rounding of each tensor to ALLOC_ROUND bytes); the real serve step on
+    the kernel route, from a random cache DRY_STEPS short of its
+    32768-position context, gives the next tokens of the step off the
+    mesh, DRY_DECODE_LAUNCHES decode_attention launches a step and the
+    rmsnorm launches of a danube decode step; its device time beside the
+    record's memory term; the record's temp bytes beside the step's peak
+    allocation."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import (axis_rules,
+                                                  rules_for_config,
+                                                  shard_params)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.transformer import DecodeState
+    from repro_torch.training import make_serve_step
+    from repro_torch.training.optimizer import tree_map
+    shape = SHAPES[DRY_SHAPE]
+    real = mesh_mod.make_production_mesh
+    mesh_mod.make_production_mesh = lambda multi_pod=False: mesh
+    try:
+        t0 = time.perf_counter()
+        rec, _ = dryrun.lower_cell(DRY_ARCH, DRY_SHAPE, False)
+        trace_s = time.perf_counter() - t0
+    finally:
+        mesh_mod.make_production_mesh = real
+    check(rec["mesh_device"] == "cuda" and rec["chips"] == 1,
+          f"dry-run on the (1, 1) mesh: {rec['mesh_device']}, "
+          f"{rec['chips']} chips")
+    cfg = get_config(DRY_ARCH)
+    rules = rules_for_config(cfg, overrides=dryrun._rule_overrides(
+        cfg, shape, mesh))
+    model = build_model(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    start = S - DRY_STEPS - 1
+    step = make_serve_step(model)
+
+    def random_state():
+        """The cache of a 32768-position context DRY_STEPS + 1 short of
+        its end (window full and wrapped), random from the seed."""
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        st = model.init_cache(B, S, device=dev)
+        for t in (st.kv.k, st.kv.v):
+            t.normal_(generator=gen)
+        return DecodeState(KVCache(st.kv.k, st.kv.v, start), None, None,
+                           start)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = shard_params(model.init(gen, dev), mesh, model.param_axes(),
+                          rules)
+    state = shard_params(random_state(), mesh, model.cache_axes(), rules)
+    tok = shard_params(torch.randint(0, cfg.vocab_size, (B, 1), device=dev,
+                                     generator=gen, dtype=torch.int32),
+                       mesh, ("batch", None), rules)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    placed = _nbytes((params, state, tok))
+    n_tensors = _tensor_count((params, state, tok))
+    arg = rec["memory_analysis"]["argument_size_in_bytes"]
+    check(arg == placed, f"dry-run argument bytes {arg} != {placed} placed "
+          "on the card")
+    check(0 <= grown - placed <= ALLOC_ROUND * n_tensors,
+          f"memory_allocated grew {grown}, placed {placed} bytes in "
+          f"{n_tensors} tensors")
+    log(f"dry-run {DRY_ARCH} {DRY_SHAPE} on the (1, 1) mesh: traced in "
+        f"{trace_s:.2f} s; argument bytes {arg} == {placed} placed in "
+        f"{n_tensors} tensors; memory_allocated grew {grown} (rounding "
+        f"{grown - placed} bytes)")
+
+    first = tok.to_local().clone()
+    nxt, toks, counts = tok, [], []
+    with torch.no_grad(), axis_rules(rules, mesh=mesh):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(DRY_STEPS):
+            _zero_counts()
+            nxt, state = step(params, state, nxt)
+            counts.append(_read_counts())
+            toks.append(_whole(nxt).clone())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+
+        def one_step():
+            step(params, state, nxt)
+
+        step_ms, _ = device_ms(one_step, 4)
+    del state
+    torch.cuda.empty_cache()
+    # the same steps off the mesh, from the same cache made again
+    off_params = tree_map(lambda t: t.to_local(), params)
+    off, nxt_off, same = random_state(), first, True
+    with torch.no_grad():
+        for i in range(DRY_STEPS):
+            _zero_counts()
+            nxt_off, off = step(off_params, off, nxt_off)
+            off_counts = _read_counts()
+            same = same and bool((nxt_off == toks[i]).all())
+    del off
+    check(same, "mesh decode tokens differ from the step off the mesh")
+    want = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": 0,
+            "decode_attention": DRY_DECODE_LAUNCHES}
+    check(all(c == want for c in counts) and off_counts == want,
+          f"mesh decode launches {counts}, off the mesh {off_counts}, want "
+          f"{want}")
+    mem_ms = rec["roofline"]["memory_s"] * 1e3
+    temp = rec["memory_analysis"]["temp_size_in_bytes"]
+    log(f"dry-run cell on the card: next tokens equal off the mesh over "
+        f"{DRY_STEPS} steps; launches a step {counts[0]}; step device time "
+        f"{step_ms:.4f} ms vs the record's memory term {mem_ms:.4f} ms "
+        f"(ratio {step_ms / mem_ms:.4f}; the record traces the plain route); "
+        f"record temp bytes {temp} vs the step's peak allocation {peak}")
+    del params, off_params, tok, nxt
+    torch.cuda.empty_cache()
+    return {"arg_bytes": arg, "placed": placed, "grown": grown,
+            "launches": counts[0], "step_device_ms": step_ms,
+            "record_memory_ms": mem_ms, "temp": temp, "peak": peak,
+            "trace_s": trace_s}
+
+
+def _dry_cell(arch: str, shape: str) -> dict:
+    """One production record, in a process of its own: ``lower_cell``
+    starts its 256-rank fake world there."""
+    from repro_torch.launch import dryrun
+    rec, _ = dryrun.lower_cell(arch, shape, False)
+    return rec
+
+
+def dry_records(futs, card_arg_bytes: int):
+    """(b) the production records (``futs``: each cell's future), traced
+    on fake CUDA tensors over a 256-rank fake world: every roofline term
+    positive, useful FLOPs ratio in (0, DRY_USEFUL_MAX], olmoe's EP
+    collectives recorded (an all-gather of each expert weight and an
+    all-reduce combine a MoE layer at least), danube decode_32k's
+    argument bytes at most (a)'s / 16."""
+    from repro_torch.configs import get_config
+    out = {}
+    for (arch, shape), fut in futs.items():
+        rec = fut.result()
+        r = rec["roofline"]
+        ratio = rec["useful_flops_ratio"]
+        coll = rec["collectives"]["collective_counts"]
+        check(rec["mesh_device"] == "cuda" and rec["chips"] == 256,
+              f"dry-run {arch} {shape}: {rec['mesh_device']} mesh, "
+              f"{rec['chips']} ranks")
+        check(min(r["compute_s"], r["memory_s"], r["collective_s"]) > 0
+              and ratio is not None and 0 < ratio <= DRY_USEFUL_MAX,
+              f"dry-run {arch} {shape}: roofline {r}, useful {ratio}")
+        if arch == EP_ARCH:
+            # the EP block's own collectives, the reference's design
+            # (src/repro/models/moe.py:134-181): each MoE layer all-gathers
+            # its experts' FSDP shards (wi, wg, wo) and sums its combine
+            # over "model" (an all-reduce); no all-to-all moves tokens
+            layers = get_config(arch).num_layers
+            check(coll.get("all-gather", 0) >= 3 * layers
+                  and coll.get("all-reduce", 0) >= layers,
+                  f"dry-run {arch} {shape}: the EP block's gathers and "
+                  f"combines missing from {coll}")
+        if (arch, shape) == (DRY_ARCH, DRY_SHAPE):
+            arg = rec["memory_analysis"]["argument_size_in_bytes"]
+            check(arg * 16 <= card_arg_bytes, f"dry-run {arch} {shape}: "
+                  f"{arg} argument bytes a rank, (a) {card_arg_bytes}")
+        log(f"OK  {arch}/{shape}/single: compute={r['compute_s']:.4f}s "
+            f"memory={r['memory_s']:.4f}s coll={r['collective_s']:.4f}s "
+            f"dominant={r['dominant']} useful={ratio:.3f} (trace "
+            f"{rec['compile_s']:.0f}s) collectives {coll} bytes "
+            f"{rec['collectives']['collective_operand_bytes']} largest "
+            f"{rec['collective_ops'][:2]} memory {rec['memory_analysis']}")
+        out[(arch, shape)] = rec
+    return out
+
+
+def dryrun_path(args, dev):
+    """Phase 12: (b)'s records start tracing first, each cell in a spawned
+    process of its own (a trace is host work: a full-depth one takes
+    minutes), while (a) runs on the (1, 1) mesh of a 1-rank NCCL world
+    over a FileStore; then (b)'s records are read and checked."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max_workers=len(DRY_CELLS),
+                             mp_context=mp.get_context("spawn")) as pool:
+        futs = {cell: pool.submit(_dry_cell, *cell) for cell in DRY_CELLS}
+        card = dry_card_path(dev, args.seed)
+        recs = dry_records(futs, card["arg_bytes"])
+    return {"card": card, "records": recs}
+
+
+def dry_card_path(dev, seed: int):
+    """(a) on the (1, 1) mesh of a 1-rank NCCL world over a FileStore."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory(prefix="nccl-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            return dry_card_cell(dev, mesh, seed)
+        finally:
+            dist.destroy_process_group()
+
+
 # -- phase 8: timing --------------------------------------------------------
 
 def time_ms(fn, reps: int) -> float:
@@ -2167,7 +2534,9 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
     8192-token prefill), with the plain version and the library call."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
-    from repro_torch.kernels.ref import (decode_attention_ref,
+    from repro_torch.kernels.decode_attention import decode_attention_partial
+    from repro_torch.kernels.ref import (decode_attention_partial_ref,
+                                         decode_attention_ref,
                                          flash_attention_ref, rmsnorm_ref)
     bf = torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(4)
@@ -2261,6 +2630,22 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
                4.0 * slots * Hq * length * hd, BF16_FLOPS_PER_S),
         [slots, Hq, Hkv, W, hd, length], ATTN_BF16_TOL)
     del q, kc, vc
+    # decode_attention_partial at phase 12a's card cell: danube's
+    # decode_32k batch over its full window, one slice (the (1, 1) mesh),
+    # an f32 o and each head's lse out. No PyTorch call returns the lse
+    B = 128
+    q = randn((B, Hq, hd))
+    kc = randn((B, W, Hkv, hd)).transpose(1, 2)
+    vc = randn((B, W, Hkv, hd)).transpose(1, 2)
+    res["decode_attention_partial"] = _timed(
+        "decode_attention_partial",
+        lambda: decode_attention_partial(q, kc, vc, W)[0],
+        lambda: decode_attention_partial_ref(q, kc, vc, W)[0], None, 50,
+        _bound(2.0 * (2 * B * Hkv * W * hd + B * Hq * hd)
+               + 4.0 * (B * Hq * hd + B * Hq), 4.0 * B * Hq * W * hd,
+               BF16_FLOPS_PER_S),
+        [B, Hq, Hkv, W, hd, W], ATTN_BF16_TOL)
+    del q, kc, vc
     # whisper-medium's encoder at its serving batch: 16 heads of 64, no
     # GQA, non-causal over its 1500 frames (SDPA with is_causal=False)
     Bw, Hw, Sw, Dw = WHISPER_SLOTS, 16, WHISPER_F32[1], 64
@@ -2327,6 +2712,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sh = sharded_path(args, dev)
     log(f"phase 11: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dr = dryrun_path(args, dev)
+    log(f"phase 12: {time.perf_counter() - t0:.2f} s")
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
@@ -2383,9 +2771,13 @@ def main() -> int:
                  "src/repro/kernels/decode_attention.py:72",
                  lt["decode_attention"], design=DECODE_DESIGN,
                  at_d256=lt["decode_attention_d256"],
+                 at_partial_card_cell=lt["decode_attention_partial"],
                  launches_families=fam_launches("decode_attention"),
                  launches_whisper=wh["serve"]["launches"][
-                     "decode_attention"]),
+                     "decode_attention"],
+                 launches_mesh_decode_step=dr["card"]["launches"][
+                     "decode_attention"],
+                 decode_bf16_gap=max(DECODE_GAP.values())),
     ]
     log(f"main path: model={mp['model']} stage_count={mp['stage_count']} "
         f"cold={mp['cold_s']:.4f} s warm={mp['warm_s']:.4f} s "
@@ -2444,6 +2836,19 @@ def main() -> int:
         f"{stt['tok_s']:.1f} tok/s, peak {stt['peak_gib']:.2f} GiB (--mesh "
         f"none: {t['steady_s']:.4f} s, {t['tok_s']:.1f} tok/s, peak "
         f"{t['peak_gib']:.2f} GiB)")
+    c = dr["card"]
+    log(f"dry run: {DRY_ARCH} {DRY_SHAPE} on the (1, 1) mesh: argument "
+        f"bytes {c['arg_bytes']} == placed {c['placed']} (memory_allocated "
+        f"+{c['grown']}), launches a step {c['launches']}, step "
+        f"{c['step_device_ms']:.4f} ms on the device vs the record's memory "
+        f"term {c['record_memory_ms']:.4f} ms, record temp {c['temp']} vs "
+        f"peak {c['peak']}; records: " + "; ".join(
+            f"{a}/{sh_} {r['roofline']['dominant']} compute "
+            f"{r['roofline']['compute_s']:.4g} s memory "
+            f"{r['roofline']['memory_s']:.4g} s coll "
+            f"{r['roofline']['collective_s']:.4g} s useful "
+            f"{r['useful_flops_ratio']:.3f} trace {r['compile_s']:.1f} s"
+            for (a, sh_), r in dr["records"].items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,14 @@ training launcher's ``--mesh host`` builds over four ranks:
    ``launch.train --mesh host``, 8 x 4096 tokens a step in micro-batches
    of 2, 3 steps: step seconds (median of steps 2-3), tokens/s, peak
    memory of each card, launches.
+4. The sharded decode step: h2o-danube-1.8b at full width, 2 layers,
+   float32, B 8, a 4090-token prompt prefilled on one card, then 8 greedy
+   steps across the 4096 window's wrap on the mesh with the dry-run's
+   decode rules (the KV cache's length split over ``model``, its batch
+   over ``data``; each rank runs ``decode_attention_partial`` on its slice
+   and the slices merge) against the same steps on one card: tokens
+   equal, the last logits within 1e-4, each rank's ``decode_attention``
+   launches one a layer a step; step seconds.
 
 ``--smoke --device cpu`` runs the same on four gloo ranks at smoke sizes
 (a rehearsal on a machine without cards). Rank 0 prints the card's name
@@ -48,9 +56,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 ARCH, EP_ARCH = "h2o-danube-1.8b", "olmoe-1b-7b"
 LOSS_TOL, PARAM_TOL = 1e-4, 5e-3
 EP_Y_TOL, EP_AUX_TOL = 1e-4, 1e-5
-SIZES = {   # (step B, S), EP x (B, S), launcher (batch, seq, accum, steps)
-    "full": ((2, 1024), (2, 512), (8, 4096, 4, 3)),
-    "smoke": ((2, 64), (2, 16), (8, 64, 4, 3)),
+DECODE_LOGIT_TOL = 1e-4
+SIZES = {   # (step B, S), EP x (B, S), launcher (batch, seq, accum, steps),
+            # decode (B, prompt, steps)
+    "full": ((2, 1024), (2, 512), (8, 4096, 4, 3), (8, 4090, 8)),
+    "smoke": ((2, 64), (2, 16), (8, 64, 4, 3), (4, 60, 8)),
 }
 
 
@@ -253,6 +263,74 @@ def launcher(dev, args, sizes) -> dict:
             "losses": run.losses, "launches": counts, "mesh": mesh_shape}
 
 
+def decode(dev, mesh, args, sizes) -> dict:
+    """Case 4: greedy decode steps with the KV cache split over the mesh
+    against the same steps on one card."""
+    import contextlib
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import (axis_rules,
+                                                  rules_for_config,
+                                                  shard_params)
+    from repro_torch.kernels import decode_attention
+    from repro_torch.launch.dryrun import _rule_overrides
+    from repro_torch.models import build_model
+    from repro_torch.training import make_serve_step
+    cfg = _config(ARCH, args.smoke).replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    B, prompt, steps = sizes[3]
+    tokens = torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
+        0, cfg.vocab_size, (B, prompt))).to(dev)
+    step = make_serve_step(model)
+    rules = rules_for_config(cfg, overrides=_rule_overrides(
+        cfg, SHAPES["decode_32k"], mesh))
+    runs = {}
+    for where in ("one", "mesh"):
+        with torch.no_grad(), (axis_rules(rules, mesh=mesh)
+                               if where == "mesh"
+                               else contextlib.nullcontext()):
+            logits, state = model.prefill(params, tokens)
+            nxt, p = logits[:, -1:].argmax(-1), params
+            if where == "mesh":
+                p = shard_params(params, mesh, model.param_axes(), rules)
+                state = shard_params(state, mesh, model.cache_axes(), rules)
+            _sync(dev)
+            decode_attention.launch_count = 0
+            toks, secs = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                nxt, state = step(p, state, nxt)
+                _sync(dev)
+                secs.append(time.perf_counter() - t0)
+                toks.append(_whole(nxt))
+            launches = decode_attention.launch_count
+            last, _ = model.decode_step(p, state, nxt)
+            local = tuple(getattr(state.kv.k, "to_local",
+                                  lambda: state.kv.k)().shape)
+            runs[where] = (torch.cat(toks, 1), _whole(last).float(),
+                           launches, float(np.median(secs[1:])), local)
+        del state
+    (t1, l1, n1, s1, c1), (tm, lm, nm, sm, cm) = runs["one"], runs["mesh"]
+    gap = float((lm - l1).abs().max())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, nm)
+    want = steps * cfg.num_layers if dev.type == "cuda" else 0
+    _check(bool((tm == t1).all()) and gap < DECODE_LOGIT_TOL,
+           f"decode: tokens equal {bool((tm == t1).all())}, logit gap {gap}")
+    _check(n1 == want and all(n == want for n in every),
+           f"decode launches a rank {every}, one card {n1}, want {want}")
+    _log(f"decode {ARCH} f32 2 layers B={B} prompt={prompt}, {steps} steps "
+         f"on a {tuple(mesh.shape)} mesh: tokens equal one card's; last "
+         f"logits gap {gap:.3e} (bound {DECODE_LOGIT_TOL}); decode_attention"
+         f" launches a rank {every} (one card {n1}); a rank's cache slice "
+         f"{cm} of {c1}; step {sm:.4f} s on the mesh (median, rank 0), "
+         f"{s1:.4f} s on one card")
+    return {"logit_gap": gap, "launches": every, "launches_one_card": n1,
+            "mesh_step_s": sm, "one_card_step_s": s1, "cache_slice": cm}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -304,6 +382,8 @@ def main() -> int:
         res["ep"] = ep_block(dev, mesh, args, sizes)
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         res["launcher"] = launcher(dev, args, sizes)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        res["decode"] = decode(dev, mesh, args, sizes)
         if dist.get_rank() == 0:
             if smi:
                 print(smi)

@@ -2,6 +2,8 @@
 
 The modality frontend is a STUB: ``input_specs()`` provides mixed
 text/VQ-image token ids directly (vocab 65536 includes image codes).
+
+Port of ``src/repro/configs/chameleon_34b.py``.
 """
 from repro_torch.configs.base import ModelConfig, register
 

@@ -1,4 +1,7 @@
-"""Gemma 2B — dense, GeGLU, MQA, head_dim 256, tied embeddings [arXiv:2403.08295]."""
+"""Gemma 2B — dense, GeGLU, MQA, head_dim 256, tied embeddings [arXiv:2403.08295].
+
+Port of ``src/repro/configs/gemma_2b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, register
 
 

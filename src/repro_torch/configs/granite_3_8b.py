@@ -1,4 +1,7 @@
-"""Granite-3 8B — dense GQA with muP-style scalars [hf:ibm-granite]."""
+"""Granite-3 8B — dense GQA with muP-style scalars [hf:ibm-granite].
+
+Port of ``src/repro/configs/granite_3_8b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, register
 
 

@@ -1,4 +1,7 @@
-"""H2O-Danube 1.8B — llama/mistral mix with sliding-window attention [arXiv:2401.16818]."""
+"""H2O-Danube 1.8B — llama/mistral mix with sliding-window attention [arXiv:2401.16818].
+
+Port of ``src/repro/configs/h2o_danube_1_8b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, register
 
 

@@ -1,4 +1,7 @@
-"""Kimi K2 — trillion-param MoE, 384 experts top-8 [arXiv:2501.kimi2, paper table]."""
+"""Kimi K2 — trillion-param MoE, 384 experts top-8 [arXiv:2501.kimi2, paper table].
+
+Port of ``src/repro/configs/kimi_k2_1t_a32b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, MoEConfig, register
 
 

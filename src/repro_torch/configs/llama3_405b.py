@@ -1,4 +1,7 @@
-"""Llama-3 405B — dense GQA transformer [arXiv:2407.21783]."""
+"""Llama-3 405B — dense GQA transformer [arXiv:2407.21783].
+
+Port of ``src/repro/configs/llama3_405b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, register
 
 

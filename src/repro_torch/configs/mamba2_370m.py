@@ -1,4 +1,7 @@
-"""Mamba-2 370M — attention-free SSD state-space model [arXiv:2405.21060]."""
+"""Mamba-2 370M — attention-free SSD state-space model [arXiv:2405.21060].
+
+Port of ``src/repro/configs/mamba2_370m.py``.
+"""
 from repro_torch.configs.base import ModelConfig, SSMConfig, register
 
 

@@ -1,4 +1,7 @@
-"""OLMoE 1B-7B — 64-expert top-8 MoE [arXiv:2409.02060]."""
+"""OLMoE 1B-7B — 64-expert top-8 MoE [arXiv:2409.02060].
+
+Port of ``src/repro/configs/olmoe_1b_7b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, MoEConfig, register
 
 

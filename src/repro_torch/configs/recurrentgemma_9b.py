@@ -1,4 +1,7 @@
-"""RecurrentGemma 9B — Griffin: RG-LRU + local attention, pattern 2:1 [arXiv:2402.19427]."""
+"""RecurrentGemma 9B — Griffin: RG-LRU + local attention, pattern 2:1 [arXiv:2402.19427].
+
+Port of ``src/repro/configs/recurrentgemma_9b.py``.
+"""
 from repro_torch.configs.base import ModelConfig, register
 
 

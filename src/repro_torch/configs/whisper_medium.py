@@ -3,6 +3,8 @@
 ``input_specs()`` provides precomputed frame embeddings (batch, frames,
 d_model) for the encoder; the decoder consumes token ids. The assigned
 seq_len is the total context budget, split (enc, dec) = (seq/2, seq/2).
+
+Port of ``src/repro/configs/whisper_medium.py``.
 """
 from repro_torch.configs.base import ModelConfig, register
 

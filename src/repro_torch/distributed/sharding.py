@@ -33,6 +33,7 @@ Port of ``src/repro/distributed/sharding.py``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -51,6 +52,12 @@ def _current() -> Optional[Dict[str, AxisVal]]:
 
 def current_mesh():
     return getattr(_state, "mesh", None)
+
+
+def current_rules() -> Optional[Dict[str, AxisVal]]:
+    """The rules installed by the innermost :func:`axis_rules` (None
+    outside one)."""
+    return _current()
 
 
 def _is_device_mesh(mesh) -> bool:
@@ -284,10 +291,15 @@ def _is_axes(v) -> bool:
 
 
 def _map_axes(fn, tree):
-    """``fn`` over every logical-axes tuple of nested dicts, lists and
-    tuples (an axes tuple is a leaf, as in the reference's tree map)."""
+    """``fn`` over every logical-axes tuple of nested dicts, lists, tuples
+    and dataclasses (a decode state; an axes tuple is a leaf, as in the
+    reference's tree map)."""
     if _is_axes(tree):
         return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_axes(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _map_axes(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -349,6 +361,65 @@ def spec_placements(mesh, spec: Sequence,
     return tuple(out)
 
 
+# Counting modes (repro_torch.analysis) that attribute the work of a
+# shard-local body to every rank: how many are active, and the mesh size
+# of the body running in this thread (0 outside one).
+_TRACKING = [0]
+
+
+@contextlib.contextmanager
+def track_shard_bodies():
+    """While active, :func:`shard_map` marks what its bodies do: in the
+    forward :func:`shard_body_size` is the body's mesh size, and every
+    autograd node a body creates carries ``metadata["shards"]``, so a
+    counter sees that a backward op runs once on each rank."""
+    _TRACKING[0] += 1
+    try:
+        yield
+    finally:
+        _TRACKING[0] -= 1
+
+
+def shard_body_size() -> int:
+    """The mesh size of the :func:`shard_map` body running in this thread
+    while :func:`track_shard_bodies` is active, else 0."""
+    return getattr(_state, "body", 0)
+
+
+def _tag_body_nodes(outputs, inputs, size: int) -> None:
+    """``metadata["shards"] = size`` on every autograd node between a
+    body's outputs and its inputs."""
+    stop = {t.grad_fn for t in inputs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+    outs = outputs if isinstance(outputs, (tuple, list)) else (outputs,)
+    todo = [t.grad_fn for t in outs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    seen = set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in stop or node in seen:
+            continue
+        seen.add(node)
+        node.metadata["shards"] = size
+        todo.extend(fn for fn, _ in node.next_functions)
+
+
+def _tracked(f: Callable, size: int) -> Callable:
+    def body(*args, **kwargs):
+        if not _TRACKING[0]:
+            return f(*args, **kwargs)
+        prev = getattr(_state, "body", 0)
+        _state.body = size
+        try:
+            out = f(*args, **kwargs)
+        finally:
+            _state.body = prev
+        if torch.is_grad_enabled():
+            _tag_body_nodes(out, args, size)
+        return out
+    return body
+
+
 def _is_placements(spec) -> bool:
     """One placement tuple (a spec), not a tuple of them."""
     return all(isinstance(p, Placement) for p in spec)
@@ -372,20 +443,36 @@ def shard_map(f: Callable, *, mesh, in_specs, out_specs,
         i if g is None else g for g, i in zip(in_grad_specs, in_specs))
     # local_map reads a tuple as one placement list an output
     outs = list(out_specs) if _is_placements(out_specs) else out_specs
-    return local_map(f, out_placements=outs, in_placements=tuple(in_specs),
+    return local_map(_tracked(f, mesh.size()), out_placements=outs,
+                     in_placements=tuple(in_specs),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)
 
 
 def shard_params(tree, mesh, axes_tree, rules: Dict[str, AxisVal]):
-    """Every leaf of ``tree`` (nested dicts of full tensors, the same on
-    every rank) as a DTensor with the placements of its logical axes in
-    ``axes_tree``: each rank keeps its own shard, no data moves."""
+    """Every tensor leaf of ``tree`` (nested dicts, or a decode state's
+    dataclasses, of full tensors, the same on every rank) as a DTensor
+    with the placements of its logical axes in ``axes_tree``: each rank
+    keeps its own shard, no data moves; where its shard is the whole
+    tensor (no split over a mesh dim of more than one rank) the DTensor
+    wraps the tensor itself. Other leaves (a decode state's index, an
+    absent cache) stay as they are."""
     plc = tree_shardings(mesh, axes_tree, rules)
 
     def walk(t, pl):
         if isinstance(t, dict):
             return {k: walk(t[k], pl[k]) for k in t}
+        if dataclasses.is_dataclass(t):
+            return dataclasses.replace(t, **{
+                f.name: walk(getattr(t, f.name), getattr(pl, f.name))
+                for f in dataclasses.fields(t)})
+        if not isinstance(t, torch.Tensor):
+            return t
+        if all(mesh.size(i) == 1 for i, p in enumerate(pl)
+               if isinstance(p, Shard)):
+            # this rank's shard is the whole tensor: no copy (a 32 GB
+            # cache on one card is placed where it lies)
+            return DTensor.from_local(t, mesh, pl, run_check=False)
         return distribute_tensor(t, mesh, pl, src_data_rank=None)
 
     return walk(tree, plc)

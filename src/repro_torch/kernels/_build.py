@@ -32,6 +32,7 @@ from pathlib import Path
 from typing import Callable, Dict, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -96,7 +97,12 @@ def load(name: str) -> ctypes.CDLL:
 
 def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     """True if every tensor lies on the CPU, False if all lie on one CUDA
-    device; raises ``ValueError`` otherwise."""
+    device; raises ``ValueError`` otherwise, and for a fake tensor
+    (``FakeTensorMode``, as a dry-run traces), which has no data to
+    read."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise ValueError(f"{name}: a fake tensor has no data; trace the "
+                         "plain route (use_kernels=False)")
     devs = {t.device for t in tensors}
     if devs == {torch.device("cpu")}:
         return True

@@ -60,8 +60,18 @@
 // decode_combine_kernel merges a row's partials and writes the output in
 // q's dtype. With one split the split kernel writes the output itself.
 //
+// lse (optional, [B, Hq] f32): whichever pass writes the output also
+// writes each head's log of its softmax sum, m + log l in natural units,
+// -inf where no position is below length (the output is then 0). A cache
+// split over ranks runs the kernel on each rank's slice and merges the
+// slices' (o, lse) pairs (decode_attention_partial in the wrapper); there
+// the output is f32 whatever the inputs' dtype (o_f32), so the merge
+// rounds once.
+//
 // Open: the decode step around it is host-bound (PERF.md); CUDA graphs
 // over the step and fusing RoPE / the cache write into it are the levers.
+#include <math_constants.h>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -70,6 +80,7 @@ using attn::NEG_INF;
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // float32: a block-wide ring of STAGES stages of TP positions
 constexpr int TP = 32;          // cache positions per stage (one a lane)
 constexpr int STAGES = 3;
@@ -92,7 +103,8 @@ int fma_smem_bytes(int g, int d) {
 __global__ void __launch_bounds__(THREADS)
 decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ part, const int* __restrict__ lengths,
+                  float* __restrict__ part, float* __restrict__ lse,
+                  const int* __restrict__ lengths,
                   int length_all, Strides st, int hq, int hkv, int s_len,
                   int d, int chunk, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -240,6 +252,8 @@ decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = 1.f / fmaxf(ls[g], 1e-30f);
       *reinterpret_cast<float2*>(o + head * d + 2 * c) =
           make_float2(acc[i].x * inv, acc[i].y * inv);
+      if (lse != nullptr && c == 0)
+        lse[head] = ls[g] > 0.f ? ms[g] + logf(ls[g]) : -CUDART_INF_F;
     } else {
       float* pp = part + (head * n_split + split) * (d + 2);
       *reinterpret_cast<float2*>(pp + 2 * c) = acc[i];
@@ -269,10 +283,11 @@ constexpr int mma_smem_bytes(int ks) {
 template <int KS>
 __global__ void __launch_bounds__(THREADS)
 decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ part, const int* __restrict__ lengths,
+                  const bf16* __restrict__ v, void* __restrict__ o,
+                  float* __restrict__ part, float* __restrict__ lse,
+                  const int* __restrict__ lengths,
                   int length_all, Strides st, int hq, int hkv, int s_len,
-                  int d, int chunk, float scale_log2) {
+                  int d, int chunk, float scale_log2, int o_f32) {
   constexpr int DP = 16 * KS;
   constexpr int LD = mma_ld(KS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -452,7 +467,13 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const long long head = head0 + r;
     if (n_split == 1) {
-      o[head * d + c] = __float2bfloat16(a / fmaxf(ll, 1e-30f));
+      const float out = a / fmaxf(ll, 1e-30f);
+      if (o_f32)
+        static_cast<float*>(o)[head * d + c] = out;
+      else
+        static_cast<bf16*>(o)[head * d + c] = __float2bfloat16(out);
+      if (lse != nullptr && c == 0)
+        lse[head] = ll > 0.f ? (mm + log2f(ll)) * LN2 : -CUDART_INF_F;
     } else {
       float* pp = part + (head * n_split + split) * (d + 2);
       pp[c] = a;
@@ -475,7 +496,7 @@ constexpr int MAX_SPLITS = 1024;
 template <typename E>
 __global__ void __launch_bounds__(THREADS)
 decode_combine_kernel(const float* __restrict__ part, E* __restrict__ o,
-                      int hq, int d, int n_split) {
+                      float* __restrict__ lse, int hq, int d, int n_split) {
   __shared__ float w[MAX_SPLITS];
   __shared__ float red[2];
   const long long head = static_cast<long long>(blockIdx.y) * hq
@@ -505,7 +526,11 @@ decode_combine_kernel(const float* __restrict__ part, E* __restrict__ o,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (threadIdx.x == 0) red[1] = 1.f / fmaxf(l, 1e-30f);
+    if (threadIdx.x == 0) {
+      red[1] = 1.f / fmaxf(l, 1e-30f);
+      if (lse != nullptr)
+        lse[head] = l > 0.f ? (m + log2f(l)) * LN2 : -CUDART_INF_F;
+    }
   }
   __syncthreads();
   const float inv = red[1];
@@ -523,9 +548,10 @@ decode_combine_kernel(const float* __restrict__ part, E* __restrict__ o,
 
 template <int KS>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* part, const int* lengths, int length_all,
+                       float* part, float* lse, const int* lengths,
+                       int length_all,
                        const Strides& st, int b, int hq, int hkv, int s_len,
-                       int d, int chunk, int n_split, float scale,
+                       int d, int chunk, int n_split, float scale, int o_f32,
                        cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes(KS);
   static attn::SmemLimit limit;
@@ -536,19 +562,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   decode_mma_kernel<KS>
       <<<dim3(n_split, hkv * groups, b), THREADS, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<bf16*>(o), part, lengths,
-          length_all, st, hq, hkv, s_len, d, chunk, scale * LOG2E);
+          static_cast<const bf16*>(v), o, part, lse, lengths, length_all, st,
+          hq, hkv, s_len, d, chunk, scale * LOG2E, o_f32);
   return cudaGetLastError();
 }
 
-#define DECODE_ARGS q, k, v, o, part, lengths, length_all, st, b, hq, hkv, \
-                    s_len, d, chunk, n_split, scale, stream
+#define DECODE_ARGS q, k, v, o, part, lse, lengths, length_all, st, b, hq, \
+                    hkv, s_len, d, chunk, n_split, scale, o_f32, stream
 
 cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         void* o, float* part, const int* lengths,
+                         void* o, float* part, float* lse,
+                         const int* lengths,
                          int length_all, const Strides& st, int b, int hq,
                          int hkv, int s_len, int d, int chunk, int n_split,
-                         float scale, int bf16_in, cudaStream_t stream) {
+                         float scale, int bf16_in, int o_f32,
+                         cudaStream_t stream) {
   if (bf16_in) {
     switch ((d + 15) / 16) {
       case 1: return launch_mma<1>(DECODE_ARGS);
@@ -577,8 +605,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   decode_fma_kernel<<<dim3(n_split, hkv, b), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), part, lengths,
-      length_all, st, hq, hkv, s_len, d, chunk, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), part, lse,
+      lengths, length_all, st, hq, hkv, s_len, d, chunk, scale);
   return cudaGetLastError();
 }
 
@@ -590,18 +618,21 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
 // then the v cache. lengths: B int32 on the device, or null to use
 // length_all for every row. The cache is split into n_split chunks of
 // `chunk` positions (a multiple of 64), n_split <= 1024; with n_split > 1,
-// part is the f32 scratch [B, Hq, n_split, D + 2]. Needs D % 8 == 0,
+// part is the f32 scratch [B, Hq, n_split, D + 2]. lse: null, or [B, Hq]
+// f32 for each head's log softmax sum. o_f32: 1 for an f32 output from
+// bf16 inputs. Needs D % 8 == 0,
 // (hq / hkv) * d <= 4096, D <= 256, and q and cache pointers and strides
 // 16-byte aligned (the wrapper checks). bf16:
 // 0 for float32 q / caches / output, 1 for bfloat16. Launches the split
 // kernel and, with more than one split, the combine on the same stream;
 // returns the first cudaGetLastError() that is not cudaSuccess.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                void* o, float* part, const int* lengths,
+                                void* o, float* part, float* lse,
+                                const int* lengths,
                                 int length_all, const long long* strides,
                                 int b, int hq, int hkv, int s_len, int d,
                                 int chunk, int n_split, float scale,
-                                int bf16, void* stream) {
+                                int bf16, int o_f32, void* stream) {
   if ((hq / hkv) * d > MAX_GROUP_WIDTH || d > 256 || d % 8 || chunk % 64
       || n_split < 1 || n_split > MAX_SPLITS
       || (n_split > 1 && part == nullptr))
@@ -609,15 +640,15 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_split(q, k, v, o, part, lengths, length_all, st,
-                                 b, hq, hkv, s_len, d, chunk, n_split, scale,
-                                 bf16, s);
+  cudaError_t err = launch_split(q, k, v, o, part, lse, lengths, length_all,
+                                 st, b, hq, hkv, s_len, d, chunk, n_split,
+                                 scale, bf16, o_f32, s);
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  if (bf16)
+  if (bf16 && !o_f32)
     decode_combine_kernel<__nv_bfloat16><<<dim3(hq, b), THREADS, 0, s>>>(
-        part, static_cast<__nv_bfloat16*>(o), hq, d, n_split);
+        part, static_cast<__nv_bfloat16*>(o), lse, hq, d, n_split);
   else
     decode_combine_kernel<float><<<dim3(hq, b), THREADS, 0, s>>>(
-        part, static_cast<float*>(o), hq, d, n_split);
+        part, static_cast<float*>(o), lse, hq, d, n_split);
   return static_cast<int>(cudaGetLastError());
 }

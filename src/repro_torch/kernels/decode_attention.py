@@ -25,6 +25,12 @@ CUDA tensors launch the kernel on the current stream or raise. There is no
 fallback between the two. ``decode_attention.launch_count`` counts
 launches. Decoding is never differentiated: on the card the wrapper raises
 where autograd records and an input requires grad.
+
+:func:`decode_attention_partial` runs the same kernel over one slice of a
+cache (a rank's share of a cache split over ``cache_seq``) and also
+returns each head's log softmax sum; :func:`combine_partials` merges the
+slices' pairs. It counts in ``decode_attention.launch_count``: it launches
+the one kernel.
 """
 from __future__ import annotations
 
@@ -35,7 +41,12 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import (combine_partials,
+                                     decode_attention_partial_ref,
+                                     decode_attention_ref)
+
+__all__ = ["decode_attention", "decode_attention_partial",
+           "combine_partials"]
 
 MAX_HEAD_DIM = 256
 MAX_GROUP_WIDTH = 4096          # (Hq / Hkv) * D accumulators per block
@@ -45,9 +56,10 @@ SPLIT_QUANTUM = 64              # positions: a chunk is a multiple of this
 BLOCKS_PER_SM = 2               # the grid the plan aims for, per SM
 H100_SMS = 132
 _KERNEL = _build.Kernel("decode_attention", "decode_attention",
-                        [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int]
                         + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
+                        + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 def _split_plan(batch: int, kv_heads: int, n: int,
@@ -120,10 +132,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, length)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length)
+    return _launch(q, k_cache, v_cache, length, None)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor,
+                             length: Union[int, torch.Tensor]):
+    """:func:`decode_attention` over one slice of a cache: (o [B, Hq, D]
+    float32, normalised within the slice, lse [B, Hq] float32, the log of
+    the slice's softmax sum). A row with no position below ``length``
+    gives ``o = 0`` and ``lse = -inf``. The slices of a cache merge with
+    :func:`combine_partials`; o stays in float32 so that the merge rounds
+    once."""
+    _check(q, k_cache, v_cache, length)
+    if q.device.type == "cpu":
+        return decode_attention_partial_ref(q, k_cache, v_cache, length)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch(q, k_cache, v_cache, length, lse), lse
+
+
+def _launch(q, k_cache, v_cache, length, lse):
+    """One launch into a new output: q's dtype, or float32 with ``lse``
+    (which it also fills)."""
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if lse is not None
+                         else q.dtype)
     if not B * Hq * D:
         return o
     lengths, length_all = None, 0
@@ -144,9 +179,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _KERNEL.launch(decode_attention, q.device, q.data_ptr(),
                    k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
                    None if part is None else part.data_ptr(),
+                   None if lse is None else lse.data_ptr(),
                    None if lengths is None else lengths.data_ptr(),
                    length_all, strides, B, Hq, Hkv, S, D, chunk, splits,
                    float(D ** -0.5), int(q.dtype == torch.bfloat16),
+                   int(lse is not None and q.dtype != torch.float32),
                    what=lambda: f"q {tuple(q.shape)}, cache "
                                 f"{tuple(k_cache.shape)} {q.dtype}")
     return o

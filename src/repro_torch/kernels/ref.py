@@ -58,6 +58,51 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+def slice_softmax(s: torch.Tensor, valid: torch.Tensor):
+    """Scores ``s`` [..., n] of one slice, masked where ``valid`` is
+    false: (p = exp(s - lse) [..., n], lse [...] float32), the softmax's
+    numerators normalised within the slice and the log of their sum. A
+    row with no valid score gives p = 0 and lse = -inf."""
+    s = torch.where(valid, s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    return p, lse
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 length: Union[int, torch.Tensor]):
+    """:func:`decode_attention_ref` over one slice of a cache: (o [B, Hq,
+    D] float32, normalised within the slice, lse [B, Hq] float32, the log
+    of the slice's softmax sum ``m + log l``). A row with no position
+    below ``length`` gives ``o = 0`` and ``lse = -inf``."""
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, D).to(torch.float32) * (D ** -0.5)
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.to(torch.float32))
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
+    p, lse = slice_softmax(s, torch.arange(S, device=q.device) < length)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, Hq, D), lse.reshape(B, Hq)
+
+
+def combine_partials(os, lses, dtype=None):
+    """Merge the slices' (o, lse) of one query a row into the attention
+    over their union: os [n, ..., D] (or a list of n), lses [n, ...]
+    float32 -> [..., D] in ``dtype`` (default: that of os). A slice with
+    ``lse = -inf`` weighs nothing. Plain elementwise ops, so it also runs
+    on DTensors whose dim 0 is whole."""
+    if isinstance(os, (list, tuple)):
+        os, lses = torch.stack(list(os)), torch.stack(list(lses))
+    m = lses.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lses - m)                                 # [n, ...]
+    num = (w[..., None] * os.to(torch.float32)).sum(dim=0)
+    den = torch.clamp(w.sum(dim=0), min=1e-30)
+    return (num / den[..., None]).to(dtype or os.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """x: [N, D]; w: [D] (1+w scaling)."""

@@ -17,7 +17,9 @@ on the CPU and on one card. jax's ``Mesh`` refuses duplicate devices.
 ``torch.distributed.device_mesh.init_device_mesh`` over the initialised
 world (single pod: 16 x 16 = 256 ranks ``("data", "model")``; multi-pod:
 2 x 16 x 16 = 512 ranks ``("pod", "data", "model")``). The caller starts
-the process group; a world of another size than the mesh raises.
+the process group; a world of another size than the mesh raises. The mesh
+is a ``"cuda"`` one over NCCL, and over a ``"fake"`` world (the dry-run's)
+where CUDA is present; else ``"cpu"``.
 
 Nothing here falls back to the CPU when it finds no GPU.
 
@@ -97,7 +99,11 @@ def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
     if world != size:
         raise ValueError(f"a {'x'.join(map(str, shape))} {names} mesh needs "
                          f"{size} ranks; the process group has {world}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    backend = dist.get_backend()
+    # a fake world (the dry-run's) stands for NCCL ranks where CUDA is
+    # present: its DTensors then redistribute as NCCL ranks' do
+    device_type = ("cuda" if backend == "nccl" or (
+        backend == "fake" and torch.cuda.is_available()) else "cpu")
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 

@@ -23,6 +23,16 @@ copy is made. :func:`attn_decode_apply` writes the new key and value into
 the cache in place where the reference returns an updated copy
 (``dynamic_update_slice``).
 
+Decode on a device mesh (the reference's dry-run rules) takes caches
+split over ``cache_seq``: the rank that holds the new token's slot
+writes it into its local slice (:func:`write_slot`), every rank attends
+to its slice (``decode_attention_partial`` on the kernel route, one
+launch a rank, or :func:`decode_attention_slice`), and the slices' (o,
+lse) pairs are merged after a gather over the cache's mesh dims
+(``combine_partials``), where the reference leaves the split to XLA's
+partitioner. :func:`cache_axes` and :func:`set_decode_f32_upcast` are
+the reference's.
+
 On a device mesh q, k and v are DTensors placed by the reference's
 ``lshard`` annotations: batch split over the data axes, q heads over
 ``"model"`` (``act_heads``), k / v heads replicated (``act_kv_heads``).
@@ -41,10 +51,13 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import lshard, shard_map
+from repro_torch.kernels.decode_attention import (combine_partials,
+                                                  decode_attention_partial)
 from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dtype_of
+from repro_torch.kernels.ref import slice_softmax
+from repro_torch.models.layers import apply_rope, dense, dtype_of
 from repro_torch.models.spec import P
 
 NEG_INF = -2.0 ** 30
@@ -208,6 +221,57 @@ def init_kv_cache(cfg, layers: int, batch: int, max_len: int,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
+def cache_axes(_cfg) -> KVCache:
+    """The KV cache's logical axes (the reference's layout)."""
+    ax = ("layers", "batch", "cache_seq", "act_kv_heads", "head_dim")
+    return KVCache(ax, ax, ())
+
+
+# The dry-run's 'baseline' variant: the plain decode keeps the scaled q and
+# the probabilities in f32 (the reference's naive decode, which upcasts the
+# whole cache). Set only by set_decode_f32_upcast.
+_DECODE_F32_UPCAST = False
+
+
+def set_decode_f32_upcast(flag: bool) -> None:
+    """Make the plain decode route (:func:`decode_attention`, and its
+    slice on a mesh) keep q and the probabilities in f32 rather than round
+    them to the cache's dtype. The kernel route always keeps them in
+    f32."""
+    global _DECODE_F32_UPCAST
+    _DECODE_F32_UPCAST = bool(flag)
+
+
+def _decode_scores(q, k_cache, index: int, slots: int, first: int,
+                   window: Optional[int], softcap: Optional[float]):
+    """Scaled scores [B, K, G, n] of q [B, 1, Hq, D] against the cache
+    slots ``first .. first + n`` of a ``slots``-slot cache, and the mask
+    of the valid ones (the reference's slot mask)."""
+    B, _, Hq, D = q.shape
+    K = k_cache.shape[2]
+    qf = q.reshape(B, K, Hq // K, D)
+    if _DECODE_F32_UPCAST:
+        qf = qf.to(torch.float32) * (D ** -0.5)
+    else:
+        qf = (qf * (D ** -0.5)).to(k_cache.dtype).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32))
+    s = _softcap(s, softcap)
+    slot = first + torch.arange(k_cache.shape[1], device=q.device)
+    if window is None:
+        valid = slot <= index
+    else:
+        pos_of_slot = index - torch.remainder(index - slot, slots)
+        valid = ((pos_of_slot >= 0) & (pos_of_slot > index - slots)
+                 & (pos_of_slot <= index))
+    return s, valid
+
+
+def _probs_times_v(p, v_cache):
+    if not _DECODE_F32_UPCAST:
+        p = p.to(v_cache.dtype).to(torch.float32)
+    return torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+
+
 def decode_attention(q, k_cache, v_cache, index: int, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:
@@ -217,28 +281,31 @@ def decode_attention(q, k_cache, v_cache, index: int, *,
     ``index`` is the absolute position of the new token; cache slot layout
     is circular when ``window`` is set (slot = pos % W), linear otherwise.
     The scaled q and the probabilities are rounded to the cache's dtype
-    before the products, as the reference does; products sum in f32.
+    before the products, as the reference does (unless
+    :func:`set_decode_f32_upcast`); products sum in f32.
     """
     B, _, Hq, D = q.shape
-    W, K = k_cache.shape[1], k_cache.shape[2]
-    G = Hq // K
-    qf = (q.reshape(B, K, G, D) * (D ** -0.5)).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", qf.to(torch.float32),
-                     k_cache.to(torch.float32))
-    s = _softcap(s, softcap)
-    slots = torch.arange(W, device=q.device)
-    if window is None:
-        valid = slots <= index
-    else:
-        pos_of_slot = index - torch.remainder(index - slots, W)
-        valid = ((pos_of_slot >= 0) & (pos_of_slot > index - W)
-                 & (pos_of_slot <= index))
-    s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd",
-                       p.to(v_cache.dtype).to(torch.float32),
-                       v_cache.to(torch.float32))
+    s, valid = _decode_scores(q, k_cache, index, k_cache.shape[1], 0,
+                              window, softcap)
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    out = _probs_times_v(p, v_cache)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def decode_attention_slice(q, k_cache, v_cache, index: int, slots: int,
+                           first: int, *, window: Optional[int] = None,
+                           softcap: Optional[float] = None):
+    """:func:`decode_attention` over the cache slots ``first ..`` of a
+    ``slots``-slot cache (one rank's share): (o [B, Hq, D] float32,
+    normalised within the slice, lse [B, Hq] float32). A slice with no
+    valid slot gives o = 0 and lse = -inf. Slices merge with
+    :func:`combine_partials`."""
+    B, _, Hq, D = q.shape
+    s, valid = _decode_scores(q, k_cache, index, slots, first, window,
+                              softcap)
+    p, lse = slice_softmax(s, valid)
+    out = _probs_times_v(p, v_cache)
+    return out.reshape(B, Hq, D), lse.reshape(B, Hq)
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +315,15 @@ def decode_attention(q, k_cache, v_cache, index: int, *,
 def head_proj(cfg, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] in cfg.dtype."""
     B, S, _ = x.shape
-    return torch.matmul(x, w.to(dtype_of(cfg)).reshape(w.shape[0], -1)
-                        ).reshape(B, S, w.shape[1], w.shape[2])
+    w2 = w.to(dtype_of(cfg)).reshape(w.shape[0], -1)
+    if isinstance(w2, DTensor):
+        # FSDP: gather the embed rows, keep the heads' split. Left to
+        # itself DTensor may split the product's columns over "model",
+        # which cuts a head when there are fewer heads than shards (8 kv
+        # heads over a 16-wide axis) and then cannot view as heads.
+        w2 = w2.redistribute(w2.device_mesh, tuple(
+            Replicate() if p == Shard(0) else p for p in w2.placements))
+    return dense(x, w2).reshape(B, S, w.shape[1], w.shape[2])
 
 
 def _project(cfg, p: dict, x: torch.Tensor):
@@ -264,7 +338,7 @@ def _project(cfg, p: dict, x: torch.Tensor):
 def out_proj(cfg, p: dict, o: torch.Tensor) -> torch.Tensor:
     wo = p["wo"].to(dtype_of(cfg))
     B, S = o.shape[:2]
-    return torch.matmul(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
+    return dense(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
 
 
 def _kernel_route(cfg, x: torch.Tensor, use_kernels: bool) -> bool:
@@ -363,7 +437,11 @@ def decode_attend(cfg, q: torch.Tensor, k_cache: torch.Tensor,
     """One query token a row, q [B, 1, Hq, D], against caches
     [B, W, Hkv, D] at absolute position ``index``: the decode kernel with
     ``length = min(index + 1, W)`` on the kernel route, else the plain
-    slot mask."""
+    slot mask. DTensor caches split over ``cache_seq`` run on each rank's
+    slice (:func:`_decode_attend_sharded`)."""
+    if isinstance(k_cache, DTensor):
+        return _decode_attend_sharded(cfg, q, k_cache, v_cache, index,
+                                      window=window, use_kernels=use_kernels)
     if _kernel_route(cfg, q, use_kernels):
         B, _, Hq, D = q.shape
         return decode_attention_kernel(
@@ -372,6 +450,81 @@ def decode_attend(cfg, q: torch.Tensor, k_cache: torch.Tensor,
             min(index + 1, k_cache.shape[1])).reshape(B, 1, Hq, D)
     return decode_attention(q, k_cache, v_cache, index, window=window,
                             softcap=cfg.attn_logit_softcap)
+
+
+def _seq_slice(cache: DTensor):
+    """(first slot, slots) of this rank's slice of a DTensor cache
+    [B, W, Hkv, D] whose dim 1 splits evenly over one or more mesh dims
+    (major first, in mesh order)."""
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    shards, index = 1, 0
+    for i, p in enumerate(cache.placements):
+        if p == Shard(1):
+            shards, index = shards * mesh.size(i), index * mesh.size(i) + coord[i]
+    W = cache.shape[1]
+    if W % shards:
+        raise ValueError(f"a {W}-slot cache does not split evenly into "
+                         f"{shards} slices")
+    return index * (W // shards), W // shards
+
+
+def _batch_rows_of(cache: DTensor):
+    """The placements that keep only ``cache``'s batch split (dim 0)."""
+    return tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new`` in place, cache [B, W, Hkv, D], new
+    [B, Hkv, D]. On a DTensor cache the rank whose slice holds ``slot``
+    writes it into its local shard (a DTensor write on a split dim would
+    move the cache); the others leave theirs as it is."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = new.to(cache.dtype)
+        return
+    first, n = _seq_slice(cache)
+    new = new.redistribute(cache.device_mesh, _batch_rows_of(cache))
+    if first <= slot < first + n:
+        cache.to_local()[:, slot - first] = new.to_local().to(cache.dtype)
+
+
+def _decode_attend_sharded(cfg, q, k_cache: DTensor, v_cache: DTensor,
+                           index: int, *, window: Optional[int],
+                           use_kernels: bool) -> DTensor:
+    """:func:`decode_attend` on caches split over ``cache_seq`` (and
+    their batch over the data axes): each rank attends its rows' q to its
+    slice (the kernel with ``length - first`` clamped to the slice, or the
+    plain slot mask), and the slices' (o, lse) pairs, gathered over the
+    mesh dims that split the cache, merge by :func:`combine_partials`."""
+    mesh = k_cache.device_mesh
+    B, _, Hq, D = q.shape
+    W = k_cache.shape[1]
+    first, n = _seq_slice(k_cache)
+    cp = tuple(k_cache.placements)
+    rows = _batch_rows_of(k_cache)
+    # each rank's pair: a leading dim over the slices, then the batch
+    parts = tuple(Shard(0) if p == Shard(1) else
+                  Shard(1) if p == Shard(0) else Replicate() for p in cp)
+    kernel = _kernel_route(cfg, q, use_kernels)
+    length = max(0, min(min(index + 1, W) - first, n))
+
+    def local(ql, kl, vl):
+        if kernel:
+            o, lse = decode_attention_partial(
+                ql.reshape(ql.shape[0], Hq, D), kl.transpose(1, 2),
+                vl.transpose(1, 2), length)
+        else:
+            o, lse = decode_attention_slice(
+                ql, kl, vl, index, W, first, window=window,
+                softcap=cfg.attn_logit_softcap)
+        return o[None], lse[None]
+
+    o, lse = shard_map(local, mesh=mesh, in_specs=(rows, cp, cp),
+                       out_specs=(parts, parts))(q, k_cache, v_cache)
+    whole = tuple(Shard(1) if p == Shard(0) else Replicate() for p in cp)
+    o = combine_partials(o.redistribute(mesh, whole),
+                         lse.redistribute(mesh, whole), q.dtype)
+    return o.reshape(B, 1, Hq, D)
 
 
 def attn_apply(cfg, p: dict, x: torch.Tensor, *,
@@ -419,8 +572,8 @@ def attn_decode_apply(cfg, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     else:
         raise ValueError(f"decode position {index} is past the full cache's "
                          f"{W} slots (prefill with a larger max_len)")
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, k[:, 0], slot)
+    write_slot(v_cache, v[:, 0], slot)
     o = decode_attend(cfg, q, k_cache, v_cache, index, window=window,
                       use_kernels=use_kernels)
     return out_proj(cfg, p, o)

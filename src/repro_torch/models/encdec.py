@@ -32,6 +32,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -53,8 +54,18 @@ class EncDecState:
 
 def _stack(parts: List[torch.Tensor], slots: int) -> torch.Tensor:
     """Per-layer [B, S, H, D] tensors -> one [n, B, slots, H, D] stack,
-    zero past S; each layer's copy is dropped from ``parts`` as it lands."""
+    zero past S; each layer's copy is dropped from ``parts`` as it lands.
+    DTensor parts (a prefill on a mesh) are padded and stacked, which
+    DTensor places, rather than written in place."""
     p0 = parts[0]
+    if isinstance(p0, DTensor):
+        def padded(t):
+            if t.shape[1] == slots:
+                return t
+            pad = t.new_zeros((t.shape[0], slots - t.shape[1])
+                              + tuple(t.shape[2:]))
+            return torch.cat([t, pad], dim=1)
+        return torch.stack([padded(t) for t in parts])
     out = torch.zeros((len(parts), p0.shape[0], slots) + tuple(p0.shape[2:]),
                       dtype=p0.dtype, device=p0.device)
     for i in range(len(parts)):
@@ -215,6 +226,12 @@ class EncDecModel:
         ck = torch.zeros((cfg.num_layers, batch, S_enc, cfg.num_kv_heads,
                           cfg.resolved_head_dim), dtype=dt, device=device)
         return EncDecState(kv, ck, torch.zeros_like(ck), 0)
+
+    def cache_axes(self) -> EncDecState:
+        """The state's logical axes (the reference's): the self and the
+        cross caches both split their length over ``cache_seq``."""
+        cax = ("layers", "batch", "cache_seq", "act_kv_heads", "head_dim")
+        return EncDecState(attn.cache_axes(self.cfg), cax, cax, ())
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None

@@ -16,6 +16,7 @@ vocab-sharded logits are gathered along the vocab first.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +31,18 @@ from repro_torch.models.spec import DTYPES, P
 
 def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., d] @ w [d, n]``. A DTensor x of one position a row
+    (decode's [B, 1, d]) is folded to one 2-D product first: DTensor's
+    matmul does not always fold it, and then runs a batched product with
+    ``w`` expanded over the batch."""
+    if (isinstance(x, DTensor) and x.ndim > 2
+            and math.prod(x.shape[1:-1]) == 1):
+        return torch.matmul(x.reshape(x.shape[0], x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
+    return torch.matmul(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -175,15 +188,15 @@ def mlp_specs(d: int, ff: int) -> dict:
 
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = dtype_of(cfg)
-    h = torch.matmul(x, p["wi"].to(dt))
-    g = torch.matmul(x, p["wg"].to(dt))
+    h = dense(x, p["wi"].to(dt))
+    g = dense(x, p["wg"].to(dt))
     g = g.to(torch.float32)
     # jax.nn.gelu defaults to the tanh approximation
     a = (F.gelu(g, approximate="tanh") if cfg.activation == "geglu"
          else F.silu(g))
     h = a.to(dt) * h
     h = lshard(h, *(("batch",) + ("seq",) * (h.ndim - 2) + ("act_mlp",)))
-    return torch.matmul(h, p["wo"].to(dt))
+    return dense(h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +241,9 @@ def _sharded_lookup(table: DTensor, tokens: torch.Tensor) -> DTensor:
 def logits_from_hidden(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = dtype_of(cfg)
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, p["embedding"].to(dt).t())
+        logits = dense(x, p["embedding"].to(dt).t())
     else:
-        logits = torch.matmul(x, p["unembed"].to(dt))
+        logits = dense(x, p["unembed"].to(dt))
     if cfg.logits_scaling != 1.0:  # x / 1 is x: one launch saved
         logits = logits / torch.tensor(cfg.logits_scaling,
                                        dtype=logits.dtype)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import lshard
-from repro_torch.models.layers import batchwise, dtype_of
+from repro_torch.models.layers import batchwise, dense, dtype_of
 from repro_torch.models.spec import P
 
 
@@ -183,37 +183,60 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *,
     return out, None
 
 
+def mamba_cache_axes():
+    """(conv window, SSM state) logical axes: the reference's
+    ``mamba_cache_axes``."""
+    return (("layers", "batch", None, "act_rnn"),
+            ("layers", "batch", "act_ssm_heads", None, None))
+
+
 def mamba_decode_step(cfg, p: dict, x: torch.Tensor, conv_state, state):
     """One-token step. x: [B,1,D]; conv_state: [B,K-1,C]; state:
     [B,H,P,N] -> (out [B,1,D], (new conv_state, new state)). Returns new
-    tensors: the caller decides where they go."""
+    tensors: the caller decides where they go. On a DTensor the conv and
+    the state update run on each rank's batch rows (``batchwise``)."""
+    dt_ = dtype_of(cfg)
+    zxbcdt = dense(x, p["in_proj"].to(dt_))
+    ws = tuple(p[n] for n in _CORE)
+    if isinstance(zxbcdt, DTensor):
+        y, window, state = batchwise(
+            functools.partial(_mamba_decode_core, cfg),
+            (zxbcdt, conv_state, state), ws, n_out=3)
+    else:
+        y, window, state = _mamba_decode_core(cfg, zxbcdt, conv_state,
+                                              state, *ws)
+    out = dense(y, p["out_proj"].to(dt_))
+    return out, (window, state)
+
+
+def _mamba_decode_core(cfg, zxbcdt, conv_state, state, conv_w, conv_b,
+                       dt_bias, a_log, d_skip, norm_w):
+    """From the input projection [B,1,E] to the gated-normed y [B,1,d_in],
+    the new conv window [B,K-1,C] and SSM state [B,H,P,N]."""
     s, d_in, nheads, conv_ch = _dims(cfg)
     dt_ = dtype_of(cfg)
-    zxbcdt = torch.matmul(x, p["in_proj"].to(dt_))
     z, xin, B, C, dtr = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xin, B, C], dim=-1)                 # [B,1,C]
     window = torch.cat([conv_state, conv_in], dim=1)         # [B,K,C]
-    w = p["conv_w"].to(dt_)
-    conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(dt_)
+    w = conv_w.to(dt_)
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + conv_b.to(dt_)
     conv_out = F.silu(conv_out.to(torch.float32)).to(dt_)[:, None, :]
     gn = s.n_groups * s.state_dim
     xin, B, C = torch.split(conv_out, [d_in, gn, gn], dim=-1)
-    bsz = x.shape[0]
+    bsz = zxbcdt.shape[0]
     xh = xin.reshape(bsz, nheads, s.head_dim).to(torch.float32)
     rep = nheads // s.n_groups
     Bg = torch.repeat_interleave(B.reshape(bsz, s.n_groups, s.state_dim),
                                  rep, dim=1)
     Cg = torch.repeat_interleave(C.reshape(bsz, s.n_groups, s.state_dim),
                                  rep, dim=1)
-    dt_pos = F.softplus(dtr[:, 0].to(torch.float32) + p["dt_bias"][None, :])
-    A = -torch.exp(p["a_log"])
+    dt_pos = F.softplus(dtr[:, 0].to(torch.float32) + dt_bias[None, :])
+    A = -torch.exp(a_log)
     decay = torch.exp(dt_pos * A[None, :])                   # [B,H]
     upd = torch.einsum("bhn,bhp->bhpn", Bg.to(torch.float32),
                        xh * dt_pos[..., None])
     state = state * decay[..., None, None] + upd
     y = torch.einsum("bhn,bhpn->bhp", Cg.to(torch.float32), state)
-    y = y + xh * p["d_skip"][None, :, None]
+    y = y + xh * d_skip[None, :, None]
     y = y.reshape(bsz, 1, d_in).to(dt_)
-    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"].to(dt_))
-    return out, (window[:, 1:, :], state)
+    return _gated_norm(y, z, norm_w, cfg.norm_eps), window[:, 1:, :], state

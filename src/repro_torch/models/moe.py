@@ -142,6 +142,16 @@ def _own(idx: torch.Tensor, gate: torch.Tensor, E_local: int, rank: int):
     return flat_id.reshape(-1), flat_gate.reshape(-1)
 
 
+def _expert_counts(flat_id: torch.Tensor, E: int) -> torch.Tensor:
+    """Copies routed to each of the E experts (ids of E, the copies this
+    rank does not own, are dropped): ``bincount`` with a size fixed by E,
+    so a trace on fake tensors (the dry-run) knows it."""
+    ones = torch.ones_like(flat_id)
+    return torch.zeros(E + 1, dtype=flat_id.dtype,
+                       device=flat_id.device).scatter_add_(0, flat_id,
+                                                           ones)[:E]
+
+
 def _ragged(cfg, x2, gate, idx, wi, wg, wo, ep: int = 1, rank: int = 0):
     """Sort + grouped products over the copies routed to this rank's
     experts, a capacity over ``ep`` shards: y [T, D] float32 (this rank's
@@ -157,7 +167,7 @@ def _ragged(cfg, x2, gate, idx, wi, wg, wo, ep: int = 1, rank: int = 0):
     sel = order[:cap]                                           # kept copies
     tok = sel // k
     xs = x2[tok]                                                # [cap, D]
-    counts = torch.bincount(flat_id, minlength=E + 1)[:E]
+    counts = _expert_counts(flat_id, E)
     cum_cl = torch.clamp(torch.cumsum(counts, 0), max=cap)
     starts = torch.cat([cum_cl.new_zeros(1), cum_cl[:-1]])
 
@@ -190,7 +200,7 @@ def _batched(cfg, x2, gate, idx, wi, wg, wo, ep: int = 1, rank: int = 0):
     cap_e = _capacity(T * k, ep * E, m.capacity_factor)
     flat_id, flat_gate = _own(idx, gate, E, rank)              # [T*k]
     order = torch.argsort(flat_id, stable=True)
-    counts = torch.bincount(flat_id, minlength=E + 1)[:E]
+    counts = _expert_counts(flat_id, E)
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])[:-1]
     n_slots = E * cap_e
     slot = torch.arange(n_slots, device=x2.device)

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import lshard
-from repro_torch.models.layers import batchwise, dtype_of
+from repro_torch.models.layers import batchwise, dense, dtype_of
 from repro_torch.models.mamba2 import _causal_conv
 from repro_torch.models.spec import P
 
@@ -116,12 +116,18 @@ def rglru_apply(cfg, p: dict, x: torch.Tensor, *, return_state: bool = False):
     return out, None
 
 
-def rglru_decode_step(cfg, p: dict, x: torch.Tensor, conv_state, h):
-    """One-token step. x: [B,1,D]; conv_state [B,k-1,W]; h [B,W] f32 ->
-    (out [B,1,D], (new conv_state, new h)). Returns new tensors."""
+def rglru_cache_axes():
+    """(conv window, hidden) logical axes: the reference's
+    ``rglru_cache_axes``."""
+    return (("layers", "batch", None, "act_rnn"),
+            ("layers", "batch", "act_rnn"))
+
+
+def _rglru_decode_core(cfg, xb, gb, conv_state, h, *ws):
+    """The conv, gates, state update and output gate of one token:
+    (y [B,W] f32, the new conv window [B,k-1,W], the new h [B,W])."""
     dt = dtype_of(cfg)
-    xb = torch.matmul(x, p["in_x"].to(dt))
-    gb = torch.matmul(x, p["in_gate"].to(dt))
+    p = dict(zip(_CORE, ws))
     window = torch.cat([conv_state, xb], dim=1)              # [B,k,W]
     w = p["conv_w"].to(dt)
     xc = (torch.einsum("bkw,kw->bw", window, w)
@@ -129,5 +135,24 @@ def rglru_decode_step(cfg, p: dict, x: torch.Tensor, conv_state, h):
     log_a, bix = _gates(p, xc)
     h_new = torch.exp(log_a[:, 0]) * h + bix[:, 0]
     y = h_new * F.gelu(gb[:, 0].to(torch.float32), approximate="tanh")
+    return y, window[:, 1:, :], h_new
+
+
+def rglru_decode_step(cfg, p: dict, x: torch.Tensor, conv_state, h):
+    """One-token step. x: [B,1,D]; conv_state [B,k-1,W]; h [B,W] f32 ->
+    (out [B,1,D], (new conv_state, new h)). Returns new tensors. On a
+    DTensor the conv and the state update run on each rank's batch rows
+    (``batchwise``)."""
+    dt = dtype_of(cfg)
+    xb = dense(x, p["in_x"].to(dt))
+    gb = dense(x, p["in_gate"].to(dt))
+    ws = tuple(p[n] for n in _CORE)
+    if isinstance(xb, DTensor):
+        y, window, h_new = batchwise(
+            functools.partial(_rglru_decode_core, cfg),
+            (xb, gb, conv_state, h), ws, n_out=3)
+    else:
+        y, window, h_new = _rglru_decode_core(cfg, xb, gb, conv_state, h,
+                                              *ws)
     out = torch.matmul(y.to(dt), p["out"].to(dt))[:, None, :]
-    return out, (window[:, 1:, :], h_new)
+    return out, (window, h_new)

@@ -42,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -99,6 +100,17 @@ def layer_params(stacked: dict, i: int) -> dict:
     tensors (DTensors too: their ``"layers"`` dim is never split)."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in stacked.items()}
+
+
+def copy_state(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` (a recurrent state split over
+    the mesh) takes ``src`` in its own placements, each rank writing its
+    local shard."""
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
 
 
 def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
@@ -354,6 +366,19 @@ class LM:
                               dtype=torch.float32, device=device)
         return DecodeState(kv, conv, rec, 0)
 
+    def cache_axes(self) -> DecodeState:
+        """The decode state's logical axes, field for field (the
+        reference's ``LM.cache_axes``): place a state on a mesh with
+        ``shard_params(state, mesh, model.cache_axes(), rules)``."""
+        counts = self._counts()
+        kv = attn.cache_axes(self.cfg) if counts.get("attn") else None
+        conv = rec = None
+        if counts.get("ssm"):
+            conv, rec = mamba2.mamba_cache_axes()
+        if counts.get("rglru"):
+            conv, rec = rglru.rglru_cache_axes()
+        return DecodeState(kv, conv, rec, ())
+
     # ------------------------------------------------------------------
     # Prefill
     # ------------------------------------------------------------------
@@ -394,6 +419,8 @@ class LM:
         W = self._attn_window()
         slots = W if W is not None else max(max_len, S)
         k0 = layer_kv[0][0]
+        if isinstance(k0, DTensor):
+            return self._pack_kv_sharded(layer_kv, S, slots)
         B = k0.shape[0]
         shape = (len(layer_kv), B, slots) + tuple(k0.shape[2:])
         k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
@@ -412,6 +439,28 @@ class LM:
                 v[i, :, :S] = vl
         return attn.KVCache(k, v, S)
 
+    @staticmethod
+    def _pack_kv_sharded(layer_kv: list, S: int, slots: int) -> attn.KVCache:
+        """:meth:`_pack_kv` for DTensor layers (a prefill on a mesh):
+        each layer's slots built by slicing and concatenation, which
+        DTensor places, rather than written in place; the positions past
+        a window's last ``slots`` land at their circular slots as a
+        rotation."""
+        def slotted(t):
+            if slots < S:               # positions S-slots.. at pos % slots
+                tail = t[:, S - slots:]
+                shift = (S - slots) % slots
+                return torch.cat([tail[:, slots - shift:],
+                                  tail[:, :slots - shift]], dim=1)
+            if slots == S:
+                return t
+            pad = t.new_zeros((t.shape[0], slots - S) + tuple(t.shape[2:]))
+            return torch.cat([t, pad], dim=1)
+
+        k = torch.stack([slotted(kl) for kl, _ in layer_kv])
+        v = torch.stack([slotted(vl) for _, vl in layer_kv])
+        return attn.KVCache(k, v, S)
+
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
@@ -419,7 +468,10 @@ class LM:
                     tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, DecodeState]:
         """tokens [B,1] -> (logits [B,1,V], new state); the caches are
-        written in place."""
+        written in place. On a mesh the params and the state are DTensors
+        (the state placed by :meth:`cache_axes`): attention runs on each
+        rank's slice of the cache, the recurrent layers on its batch
+        rows."""
         cfg = self.cfg
         x = L.embed_tokens(cfg, params["embed"], tokens)
         index = state.index
@@ -447,14 +499,14 @@ class LM:
             elif kind == "ssm":
                 o, (cv, st) = mamba2.mamba_decode_step(cfg, p["ssm"], h,
                                                        conv[j], rec[j])
-                conv[j].copy_(cv)
-                rec[j].copy_(st)
+                copy_state(conv[j], cv)
+                copy_state(rec[j], st)
                 x = x + o
             else:
                 o, (cv, st) = rglru.rglru_decode_step(cfg, p["rglru"], h,
                                                       conv[j], rec[j])
-                conv[j].copy_(cv)
-                rec[j].copy_(st)
+                copy_state(conv[j], cv)
+                copy_state(rec[j], st)
                 x = x + o
                 h2 = self._norm(x, p["norm2"])
                 x = x + L.mlp_apply(cfg, p["mlp"], h2)

@@ -21,7 +21,11 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+from repro_torch.distributed.sharding import (current_mesh, current_rules,
+                                              lshard, to_placements)
 
 from repro_torch.training.optimizer import (AdamWState, OptimizerConfig,
                                             apply_updates, tree_leaves,
@@ -137,11 +141,24 @@ def make_prefill_step(model) -> Callable:
 
 def make_serve_step(model, greedy: bool = True) -> Callable:
     """One decode step: (params, state, tokens[B,1]) -> (next[B,1], state).
-    The state's cache is updated in place (see ``LM.decode_step``)."""
+    The state's cache is updated in place (see ``LM.decode_step``). Under
+    ``axis_rules`` with a device mesh (params DTensors, the state placed
+    by ``model.cache_axes()``) whole tokens take the placements of
+    ``("batch", None)`` first, and the state comes out in its own
+    placements, as the reference's dry-run jits the step."""
 
     def serve_step(params, state, tokens):
+        mesh, rules = current_mesh(), current_rules()
+        if (rules is not None and isinstance(mesh, DeviceMesh)
+                and not isinstance(tokens, DTensor)):
+            tokens = distribute_tensor(
+                tokens, mesh, to_placements(("batch", None), rules,
+                                            mesh.mesh_dim_names),
+                src_data_rank=None)
         logits, state = model.decode_step(params, state, tokens)
-        nxt = logits[:, -1:, :].argmax(dim=-1)
+        # the vocab whole on each rank (a no-op off a mesh): each rank
+        # takes its own rows' argmax
+        nxt = lshard(logits[:, -1:, :], "batch", None, None).argmax(dim=-1)
         return nxt, state
 
     return serve_step

@@ -354,3 +354,88 @@ def moe_one_rank(rank, world, cfgs, p_np, x_np):
                      "dtensor": type(y).__name__,
                      "serving_y": ys.numpy(), "serving_aux": float(auxs)}
     return out
+
+
+# -- the sharded decode step -------------------------------------------------
+
+DECODE_ARCHS = ("h2o-danube-1.8b", "recurrentgemma-9b", "mamba2-370m",
+                "whisper-medium")
+DECODE_STEPS = 6
+
+
+def decode_rules(cfg, mesh):
+    """The reference dry-run's decode rules (``cache_seq`` over
+    ``"model"``, heads replicated) on ``mesh``."""
+    from repro_torch.distributed.sharding import rules_for_config
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import _rule_overrides
+    return rules_for_config(cfg, overrides=_rule_overrides(
+        cfg, SHAPES["decode_32k"], mesh))
+
+
+def sharded_decode(rank, world, inputs, max_len, use_kernels):
+    """Each family's smoke model decodes ``DECODE_STEPS`` greedy steps
+    after an off-mesh prefill, on a (2, 2) mesh with the decode rules and
+    off it; rank 0's view of the tokens, logits and final caches of
+    both (whole values, as numpy), and each rank's slice of the caches.
+    ``inputs``: arch -> (numpy params, prompt tokens [B, S], encoder
+    frames or None)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.sharding import axis_rules, shard_params
+    from repro_torch.models import build_model
+    from repro_torch.training import make_serve_step
+
+    def whole(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().numpy()
+
+    def caches(state):
+        if hasattr(state, "self_kv"):
+            return [state.self_kv.k, state.self_kv.v, state.cross_k]
+        out = [state.kv.k, state.kv.v] if state.kv is not None else []
+        return out + [t for t in (state.conv, state.rec) if t is not None]
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {}
+    for arch in DECODE_ARCHS:
+        cfg = smoke_config(arch)
+        m = build_model(cfg, attn_impl="naive", use_kernels=use_kernels)
+        params_np, toks, frames = inputs[arch]
+        params = lm_params_from_numpy(params_np)
+        inp = torch.from_numpy(toks)
+        if frames is not None:
+            inp = {"tokens": inp, "frames": torch.from_numpy(frames)}
+        step = make_serve_step(m)
+        rules = decode_rules(cfg, mesh)
+        runs = {}
+        for where in ("off", "mesh"):
+            with torch.no_grad():
+                logits, state = m.prefill(params, inp, max_len=max_len)
+                nxt = logits[:, -1:].argmax(-1)
+                ctx = axis_rules(rules, mesh=mesh) if where == "mesh" else None
+                p = params
+                if ctx is not None:
+                    ctx.__enter__()
+                    p = shard_params(params, mesh, m.param_axes(), rules)
+                    state = shard_params(state, mesh, m.cache_axes(), rules)
+                got = []
+                try:
+                    for _ in range(DECODE_STEPS):
+                        nxt, state = step(p, state, nxt)
+                        got.append(whole(nxt))
+                    last, _ = m.decode_step(p, state, nxt)
+                finally:
+                    if ctx is not None:
+                        ctx.__exit__(None, None, None)
+            runs[where] = {
+                "tokens": np.concatenate(got, axis=1),
+                "logits": whole(last), "index": state.index,
+                "caches": [whole(c) for c in caches(state)],
+                "local": [c.to_local().shape if isinstance(c, DTensor)
+                          else None for c in caches(state)]}
+        out[arch] = runs
+    return out

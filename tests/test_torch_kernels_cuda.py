@@ -759,3 +759,57 @@ def test_cuda_mesh_backend_every_visible_gpu(cuda_device):
     assert backend.device_count == torch.cuda.device_count()
     assert len(backend.mesh.distinct_devices()) == backend.device_count
     _check_mesh(backend, 70000)
+
+
+# -- decode_attention over slices of a cache (a cache split over ranks) -----
+
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    combine_partials, decode_attention_partial)
+from repro_torch.kernels.ref import decode_attention_partial_ref  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,W,D", [(128, 32, 8, 4096, 80),
+                                          (32, 32, 8, 4096, 80),
+                                          (8, 16, 1, 2048, 256),
+                                          (3, 16, 2, 384, 16)])
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("where", ["W", "W-7", "quarter+3", "rows"])
+def test_cuda_decode_attention_partial_combines_to_the_whole(
+        cuda_device, dtype, B, Hq, Hkv, W, D, n, where):
+    """Each slice's (o, lse) from one launch, against the plain twin
+    (o at the kernel's attention bound, lse within 1e-3); merged by
+    ``combine_partials`` they equal the whole kernel within one bf16 ulp
+    plus 2e-4, or 1e-5 in float32. A slice wholly past length gives o = 0
+    and lse = -inf."""
+    q = _randn((B, Hq, D), B + W + n, cuda_device, dtype)
+    kc = _randn((B, W, Hkv, D), 20, cuda_device, dtype).transpose(1, 2)
+    vc = _randn((B, W, Hkv, D), 21, cuda_device, dtype).transpose(1, 2)
+    if where == "rows":
+        length = torch.tensor([(1, W, W // 4 + 3, W - 7)[b % 4]
+                               for b in range(B)], device=cuda_device)
+    else:
+        length = {"W": W, "W-7": W - 7, "quarter+3": W // 4 + 3}[where]
+    ws, os_, ls_ = W // n, [], []
+    for i in range(n):
+        ks, vs = (c[:, :, i * ws:(i + 1) * ws] for c in (kc, vc))
+        ln = (length - i * ws).clamp(0, ws) if isinstance(
+            length, torch.Tensor) else max(0, min(length - i * ws, ws))
+        before = decode_attention.launch_count
+        o, lse = decode_attention_partial(q, ks, vs, ln)
+        torch.cuda.synchronize()
+        assert decode_attention.launch_count == before + 1
+        assert o.dtype == lse.dtype == torch.float32
+        ro, rl = decode_attention_partial_ref(q, ks, vs, ln)
+        live = torch.as_tensor(ln, device=cuda_device).expand(B) > 0
+        assert torch.isneginf(lse[~live]).all()
+        assert not o[~live].abs().sum() > 0
+        if live.any():
+            assert (lse[live] - rl[live]).abs().max() <= 1e-3
+        _assert_close(o, ro, torch.float32, ATTN_TOL[dtype])
+        os_.append(o)
+        ls_.append(lse)
+    got = combine_partials(os_, ls_, dtype)
+    _assert_close(got, decode_attention(q, kc, vc, length), dtype,
+                  1e-5 if dtype == torch.float32 else ATTN_TOL[dtype])
