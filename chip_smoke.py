@@ -138,8 +138,10 @@ Phases, each raising on failure (the script then exits non-zero):
    layers, float32, B 2 x 1024) from params placed by their logical axes
    (``shard_params``, DTensor) under ``axis_rules``, against the same
    step off the mesh: loss within 1e-4 and every param within 5e-3 (the
-   reference's ``tests/test_distributed.py`` bounds), the rmsnorm and
-   flash_attention launches equal to the step's off the mesh; (b)
+   reference's ``tests/test_distributed.py`` bounds), every gradient the
+   step updates with within 1e-4 of its leaf's largest off the mesh, the
+   rmsnorm and flash_attention launches equal to the step's off the mesh;
+   (b)
    olmoe-1b-7b's MoE block at full width (64 experts, top 8, d 2048),
    float32, x (2, 512, 2048) x 0.5: ``moe_apply(mesh=...)`` (the
    expert-parallel branch) against ``moe_dense``, y within 1e-4 and aux
@@ -147,7 +149,12 @@ Phases, each raising on failure (the script then exits non-zero):
    1e-4 of each leaf's max; (c) the launcher with ``--mesh host`` at phase
    10's cell (bf16, 8 x 4096, accum 4) for 3 steps, in a 1-rank world it
    starts itself: launches those of phase 10, step seconds (median of
-   steps 2-3), tokens/s and peak memory beside phase 10's;
+   steps 2-3), tokens/s and peak memory beside phase 10's; (d) (a) for
+   gemma-2b (2 layers, its 8 q heads whole over ``"model"``), mamba2-370m
+   (2 layers, the SSD heads split over ``"model"``) and recurrentgemma-9b
+   (3 layers: two RG-LRU blocks, the width split, and a local attention
+   block at head dim 256; its AdamW moments in bf16, as the dry run keeps
+   the largest configs', so that its step fits the card);
 
 12. the dry run (``repro_torch.launch.dryrun``) against the card: (a)
    h2o-danube-1.8b ``decode_32k`` at full shape on a 1-rank NCCL world's
@@ -159,9 +166,13 @@ Phases, each raising on failure (the script then exits non-zero):
    mesh, 24 ``decode_attention`` (through ``decode_attention_partial``)
    and 49 ``rmsnorm`` launches a step; its device time beside the
    record's memory term; (b) danube's train_4k, prefill_32k, decode_32k
-   and long_500k and olmoe-1b-7b's train_4k traced on fake CUDA tensors
-   over a 256-rank fake world: every roofline term positive, the useful
-   FLOPs ratio in (0, 1.5], olmoe's expert-parallel collectives recorded
+   and long_500k, olmoe-1b-7b's, gemma-2b's and recurrentgemma-9b's
+   train_4k, and gemma-2b's and mamba2-370m's prefill_32k traced on fake
+   CUDA tensors over a 256-rank fake world, each in a process of its own
+   started before phase 11: every roofline term positive, the useful
+   FLOPs ratio in (0, 1.5], the FLOPs a device within 5% of the
+   reference's own dry run's (a constant of this script, printed beside
+   it), olmoe's expert-parallel collectives recorded
    (the experts' FSDP all-gathers and the all-reduce combine a layer),
    danube decode_32k's argument bytes at most (a)'s / 16. Phase 3 also holds
    ``decode_attention_partial`` over 1, 2 and 4 slices, merged by
@@ -177,6 +188,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -247,7 +259,22 @@ TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--batch", "8", "--seq",
 # EP_GRAD_RTOL of the largest; (c) the launcher with --mesh host at phase
 # 10's cell, SHARD_TRAIN_STEPS steps
 SHARD_LAYERS, SHARD_BATCH = 2, (2, 1024)
+# (d) the same check for the families whose cores split over "model" (or,
+# gemma's heads, stay whole over it), at full width, float32: arch ->
+# (layers, AdamW moments' dtype). recurrentgemma's one pattern cycle (two
+# RG-LRU blocks and its local attention, flash at head dim 256) keeps its
+# moments in bf16, as the dry run does for the largest configs: in f32
+# its step's params, gradients, moments and their updates (1.64 B
+# params, 6.55 GB each) and the update's temporaries outgrow 80 GB
+SHARD_FAMILIES = {"gemma-2b": (2, "float32"),
+                  "mamba2-370m": (2, "float32"),
+                  "recurrentgemma-9b": (3, "bfloat16")}
 SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-4, 5e-3
+# a first AdamW step in warm-up moves each param by about lr / 100 = 1e-5
+# whatever its gradient: (a) and (d) also hold the gradients the step
+# updates with, each leaf within SHARD_GRAD_RTOL of its largest value off
+# the mesh (the EP check's measure)
+SHARD_GRAD_RTOL = 1e-4
 EP_ARCH, EP_X = "olmoe-1b-7b", (2, 512)
 EP_Y_TOL, EP_AUX_TOL, EP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
 SHARD_TRAIN_STEPS = 3
@@ -264,9 +291,21 @@ DECODE_GAP = {}                 # shape -> the bf16 decode gap (logged)
 # on a 256-rank fake world
 DRY_ARCH, DRY_SHAPE, DRY_STEPS = "h2o-danube-1.8b", "decode_32k", 4
 DRY_DECODE_LAUNCHES = 24        # one a layer, on the (1, 1) mesh's 1 rank
-DRY_CELLS = (("h2o-danube-1.8b", "train_4k"), ("h2o-danube-1.8b",
-             "prefill_32k"), ("h2o-danube-1.8b", "decode_32k"),
-             ("h2o-danube-1.8b", "long_500k"), ("olmoe-1b-7b", "train_4k"))
+# (b) each cell with the reference's flops_per_device: its own dry run
+# (python -m repro.launch.dryrun --all --mesh single, XLA on a CPU with
+# 256 forced devices), written down here
+DRY_REF_FLOPS = {
+    ("h2o-danube-1.8b", "train_4k"): 6.347425e13,
+    ("h2o-danube-1.8b", "prefill_32k"): 1.848985e13,
+    ("h2o-danube-1.8b", "decode_32k"): 2.252472e9,
+    ("h2o-danube-1.8b", "long_500k"): 1.759744e7,
+    ("olmoe-1b-7b", "train_4k"): 5.091684e13,
+    ("gemma-2b", "train_4k"): 7.906176e13,
+    ("gemma-2b", "prefill_32k"): 2.643995e13,
+    ("recurrentgemma-9b", "train_4k"): 2.698614e14,
+    ("mamba2-370m", "prefill_32k"): 3.416123e12}
+DRY_CELLS = tuple(DRY_REF_FLOPS)
+DRY_FLOPS_RTOL = 0.05           # the port's count against the reference's
 DRY_USEFUL_MAX = 1.5
 ALLOC_ROUND = 512               # the caching allocator's rounding a tensor
 FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
@@ -1940,11 +1979,27 @@ def _whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def sharded_step_check(dev, mesh, seed: int):
-    """(a) one h2o-danube-1.8b train step (full width, SHARD_LAYERS layers,
+def grad_gap(want, got, dev) -> float:
+    """The largest over the leaves of max |got - want| / max |want| (inf
+    where a leaf of ``want`` is all 0 and ``got``'s is not)."""
+    worst = 0.0
+    for a, b in zip(want, got):
+        err = float((a.to(dev) - b).abs().max())
+        scale = float(a.abs().max())
+        worst = max(worst, err / scale if scale else
+                    (0.0 if err == 0 else math.inf))
+    return worst
+
+
+def sharded_step_check(dev, mesh, seed: int, arch: str = LM_ARCH,
+                       layers: int = SHARD_LAYERS, opt_dtype="float32"):
+    """(a) one ``arch`` train step (full width, ``layers`` layers,
     float32, SHARD_BATCH) on the mesh, from params placed by its logical
     axes (``shard_params``), against the same step off the mesh: loss and
-    params at the reference test's bounds, launches equal."""
+    params at the reference test's bounds, the gradients the step updates
+    with (each in its param's placements, then made whole) within
+    SHARD_GRAD_RTOL of each leaf's largest, launches equal (and (d), for
+    each of SHARD_FAMILIES)."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config
@@ -1956,14 +2011,17 @@ def sharded_step_check(dev, mesh, seed: int):
     from repro_torch.training import (OptimizerConfig, init_state,
                                       make_train_step)
     from repro_torch.training.optimizer import tree_leaves
-    cfg = get_config(LM_ARCH).replace(num_layers=SHARD_LAYERS,
-                                      dtype="float32", param_dtype="float32")
+    from repro_torch.training.step import _loss_and_grads
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32",
+                                   param_dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.reset_peak_memory_stats()
     B, S = SHARD_BATCH
     batch = {"tokens": torch.from_numpy(np.random.default_rng(
         seed + 11).integers(0, cfg.vocab_size, (B, S))).to(dev)}
-    step = make_train_step(model, OptimizerConfig(learning_rate=1e-3))
+    step = make_train_step(model, OptimizerConfig(learning_rate=1e-3,
+                                                  opt_dtype=opt_dtype))
     rules = rules_for_config(cfg)
     runs = {}
     for where in ("off", "mesh"):
@@ -1975,7 +2033,7 @@ def sharded_step_check(dev, mesh, seed: int):
                 bp = tree_shardings(mesh, batch_axes(cfg), rules)
                 b = {k: distribute_tensor(v, mesh, bp[k], src_data_rank=None)
                      for k, v in batch.items()}
-            opt = init_state(p)
+            opt = init_state(p, opt_dtype)
             _zero_counts()
             t0 = time.perf_counter()
             p1, _, out = step(p, opt, b)
@@ -1986,26 +2044,45 @@ def sharded_step_check(dev, mesh, seed: int):
             check(placed == [getattr(t, "placements", None)
                              for t in tree_leaves(p)],
                   f"sharded step {where}: params left their placements")
-            runs[where] = (loss, [_whole(t) for t in tree_leaves(p1)], secs,
-                           counts)
-            del p1, opt, p, b
-    (lo, po, so, co), (lm, pm, sm, cm) = runs["off"], runs["mesh"]
+            # the step off the mesh waits on the host: a full-width f32
+            # step holds params, gradients and two AdamW states twice
+            # (recurrentgemma-9b: 6.55 GB each) while it updates
+            kept = "cpu" if where == "off" else dev
+            p1 = [_whole(t).detach().to(kept) for t in tree_leaves(p1)]
+            del opt
+            # the gradients the step updates with, once more (the step
+            # returns none), after its launches were read
+            g = [_whole(t).detach().to(kept)
+                 for t in _loss_and_grads(model, p, b)[2]]
+            runs[where] = (loss, p1, secs, counts, g)
+            del p1, p, b, g
+    (lo, po, so, co, go), (lm, pm, sm, cm, gm) = runs["off"], runs["mesh"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss_gap = abs(lo - lm)
-    param_gap = max(float((a - b).abs().max()) for a, b in zip(po, pm))
+    param_gap = max(float((a.to(dev) - b).abs().max())
+                    for a, b in zip(po, pm))
+    g_gap = grad_gap(go, gm, dev)
     want = train_launches(cfg, 1)
-    check(loss_gap < SHARD_LOSS_TOL and param_gap < SHARD_PARAM_TOL,
-          f"sharded step: loss gap {loss_gap}, param gap {param_gap}")
-    check(cm == co == want, f"sharded step launches {cm}, off the mesh {co},"
-          f" want {want}")
-    log(f"sharded step {LM_ARCH} f32 {SHARD_LAYERS} layers B={B} S={S} on "
+    check(loss_gap < SHARD_LOSS_TOL and param_gap < SHARD_PARAM_TOL
+          and g_gap <= SHARD_GRAD_RTOL,
+          f"sharded step {arch}: loss gap {loss_gap}, param gap "
+          f"{param_gap}, gradient gap {g_gap} of each leaf's largest")
+    check(cm == co == want, f"sharded step {arch} launches {cm}, off the "
+          f"mesh {co}, want {want}")
+    log(f"sharded step {arch} f32 ({opt_dtype} moments) {layers} layers "
+        f"B={B} S={S} on "
         f"a {tuple(mesh.shape)} mesh: loss {lm:.6f} vs off the mesh "
         f"{lo:.6f} (gap {loss_gap:.3e}, bound {SHARD_LOSS_TOL}); max param "
-        f"gap {param_gap:.3e} (bound {SHARD_PARAM_TOL}); launches {cm} (off "
-        f"the mesh {co}); step {sm:.4f} s on the mesh, {so:.4f} s off")
-    del runs, po, pm, params
+        f"gap {param_gap:.3e} (bound {SHARD_PARAM_TOL}); gradients within "
+        f"{g_gap:.3e} of each leaf's largest (bound {SHARD_GRAD_RTOL}); "
+        f"launches {cm} (off "
+        f"the mesh {co}); step {sm:.4f} s on the mesh, {so:.4f} s off; "
+        f"peak {peak:.2f} GiB")
+    del runs, po, pm, go, gm, params
     torch.cuda.empty_cache()
-    return {"loss_gap": loss_gap, "param_gap": param_gap, "launches": cm,
-            "mesh_s": sm, "off_s": so}
+    return {"loss_gap": loss_gap, "param_gap": param_gap,
+            "grad_gap": g_gap, "launches": cm,
+            "mesh_s": sm, "off_s": so, "peak_gib": peak}
 
 
 def ep_check(dev, mesh, seed: int):
@@ -2128,8 +2205,8 @@ def sharded_train(dev):
 
 
 def sharded_path(args, dev):
-    """Phase 11: (a) and (b) on the (1, 1) mesh of a 1-rank NCCL world over
-    a FileStore, then (c) the launcher, which starts its own world."""
+    """Phase 11: (a), (b) and (d) on the (1, 1) mesh of a 1-rank NCCL world
+    over a FileStore, then (c) the launcher, which starts its own world."""
     import os
     import tempfile
 
@@ -2147,6 +2224,9 @@ def sharded_path(args, dev):
                                     mesh_dim_names=("data", "model"))
             res["step"] = sharded_step_check(dev, mesh, args.seed)
             res["ep"] = ep_check(dev, mesh, args.seed)
+            res["families"] = {
+                arch: sharded_step_check(dev, mesh, args.seed, arch, *how)
+                for arch, how in SHARD_FAMILIES.items()}
         finally:
             dist.destroy_process_group()
     res["train"] = sharded_train(dev)
@@ -2307,10 +2387,11 @@ def _dry_cell(arch: str, shape: str) -> dict:
 def dry_records(futs, card_arg_bytes: int):
     """(b) the production records (``futs``: each cell's future), traced
     on fake CUDA tensors over a 256-rank fake world: every roofline term
-    positive, useful FLOPs ratio in (0, DRY_USEFUL_MAX], olmoe's EP
-    collectives recorded (an all-gather of each expert weight and an
-    all-reduce combine a MoE layer at least), danube decode_32k's
-    argument bytes at most (a)'s / 16."""
+    positive, useful FLOPs ratio in (0, DRY_USEFUL_MAX], FLOPs a device
+    within DRY_FLOPS_RTOL of the reference's, olmoe's EP collectives
+    recorded (an all-gather of each expert weight and an all-reduce
+    combine a MoE layer at least), danube decode_32k's argument bytes at
+    most (a)'s / 16."""
     from repro_torch.configs import get_config
     out = {}
     for (arch, shape), fut in futs.items():
@@ -2324,6 +2405,12 @@ def dry_records(futs, card_arg_bytes: int):
         check(min(r["compute_s"], r["memory_s"], r["collective_s"]) > 0
               and ratio is not None and 0 < ratio <= DRY_USEFUL_MAX,
               f"dry-run {arch} {shape}: roofline {r}, useful {ratio}")
+        ref = DRY_REF_FLOPS[(arch, shape)]
+        flops = rec["flops_per_device"]
+        check(abs(flops / ref - 1) <= DRY_FLOPS_RTOL,
+              f"dry-run {arch} {shape}: {flops} FLOPs a device, the "
+              f"reference's {ref}")
+        mem = rec["memory_analysis"]
         if arch == EP_ARCH:
             # the EP block's own collectives, the reference's design
             # (src/repro/models/moe.py:134-181): each MoE layer all-gathers
@@ -2338,7 +2425,10 @@ def dry_records(futs, card_arg_bytes: int):
             arg = rec["memory_analysis"]["argument_size_in_bytes"]
             check(arg * 16 <= card_arg_bytes, f"dry-run {arch} {shape}: "
                   f"{arg} argument bytes a rank, (a) {card_arg_bytes}")
-        log(f"OK  {arch}/{shape}/single: compute={r['compute_s']:.4f}s "
+        log(f"OK  {arch}/{shape}/single: flops_per_device {flops:.6e} "
+            f"(reference {ref:.6e}, ratio {flops / ref:.4f}); argument + "
+            f"temp {mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']}"
+            f" B; compute={r['compute_s']:.4f}s "
             f"memory={r['memory_s']:.4f}s coll={r['collective_s']:.4f}s "
             f"dominant={r['dominant']} useful={ratio:.3f} (trace "
             f"{rec['compile_s']:.0f}s) collectives {coll} bytes "
@@ -2348,19 +2438,22 @@ def dry_records(futs, card_arg_bytes: int):
     return out
 
 
-def dryrun_path(args, dev):
-    """Phase 12: (b)'s records start tracing first, each cell in a spawned
-    process of its own (a trace is host work: a full-depth one takes
-    minutes), while (a) runs on the (1, 1) mesh of a 1-rank NCCL world
-    over a FileStore; then (b)'s records are read and checked."""
+def dry_pool():
+    """A pool for (b)'s traces, one spawned process a cell: a trace is host
+    work (a full-depth one takes minutes), so :func:`main` starts them
+    before phase 11, beside phase 11's and 12 (a)'s card work."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(max_workers=len(DRY_CELLS),
+                               mp_context=mp.get_context("spawn"))
 
-    with ProcessPoolExecutor(max_workers=len(DRY_CELLS),
-                             mp_context=mp.get_context("spawn")) as pool:
-        futs = {cell: pool.submit(_dry_cell, *cell) for cell in DRY_CELLS}
-        card = dry_card_path(dev, args.seed)
-        recs = dry_records(futs, card["arg_bytes"])
+
+def dryrun_path(args, dev, futs):
+    """Phase 12: (a) on the (1, 1) mesh of a 1-rank NCCL world over a
+    FileStore, then (b)'s records (``futs``, started by :func:`main`) are
+    read and checked."""
+    card = dry_card_path(dev, args.seed)
+    recs = dry_records(futs, card["arg_bytes"])
     return {"card": card, "records": recs}
 
 
@@ -2709,12 +2802,15 @@ def main() -> int:
     fam = lm_families(args, dev)
     wh = whisper_path(args, dev)
     tr = training_path(args, dev)
-    t0 = time.perf_counter()
-    sh = sharded_path(args, dev)
-    log(f"phase 11: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    dr = dryrun_path(args, dev)
-    log(f"phase 12: {time.perf_counter() - t0:.2f} s")
+    with dry_pool() as pool:
+        futs = {cell: pool.submit(_dry_cell, *cell) for cell in DRY_CELLS}
+        t0 = time.perf_counter()
+        sh = sharded_path(args, dev)
+        log(f"phase 11: {time.perf_counter() - t0:.2f} s (phase 12 (b)'s "
+            f"{len(DRY_CELLS)} traces running beside it)")
+        t0 = time.perf_counter()
+        dr = dryrun_path(args, dev, futs)
+        log(f"phase 12: {time.perf_counter() - t0:.2f} s")
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
@@ -2755,7 +2851,10 @@ def main() -> int:
                  launches_families=fam_launches("rmsnorm"),
                  launches_train_step=tr["train"]["launches_per_step"][
                      "rmsnorm"],
-                 launches_sharded_step=sh["step"]["launches"]["rmsnorm"]),
+                 launches_sharded_step=sh["step"]["launches"]["rmsnorm"],
+                 launches_sharded_families={
+                     a: f["launches"]["rmsnorm"]
+                     for a, f in sh["families"].items()}),
         lm_entry("flash_attention", "src/repro/kernels/flash_attention.py:104",
                  lt["flash_attention_prefill"], design=FLASH_DESIGN,
                  at_8192=lt["flash_attention_long"],
@@ -2766,7 +2865,10 @@ def main() -> int:
                  launches_train_step=tr["train"]["launches_per_step"][
                      "flash_attention"],
                  launches_sharded_step=sh["step"]["launches"][
-                     "flash_attention"]),
+                     "flash_attention"],
+                 launches_sharded_families={
+                     a: f["launches"]["flash_attention"]
+                     for a, f in sh["families"].items()}),
         lm_entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:72",
                  lt["decode_attention"], design=DECODE_DESIGN,
@@ -2830,7 +2932,11 @@ def main() -> int:
     st, ep, stt = sh["step"], sh["ep"], sh["train"]
     log(f"sharded: {LM_ARCH} step on the (1, 1) mesh, loss gap "
         f"{st['loss_gap']:.3e}, param gap {st['param_gap']:.3e}, launches "
-        f"{st['launches']}; EP {EP_ARCH} y {ep['y_err']:.3e}, aux "
+        f"{st['launches']}; " + "; ".join(
+            f"{a} loss gap {f['loss_gap']:.3e}, param gap "
+            f"{f['param_gap']:.3e}, launches {f['launches']}"
+            for a, f in sh["families"].items())
+        + f"; EP {EP_ARCH} y {ep['y_err']:.3e}, aux "
         f"{ep['aux_err']:.3e}, worst grad {max(ep['grad_rel'].values()):.3e}"
         f"; --mesh host steady step {stt['steady_s']:.4f} s, "
         f"{stt['tok_s']:.1f} tok/s, peak {stt['peak_gib']:.2f} GiB (--mesh "

@@ -11,8 +11,10 @@ training launcher's ``--mesh host`` builds over four ranks:
    ``data``, heads / MLP / vocab over ``model``; GQA's kv heads cut to
    each rank's q heads) against the same step on one card, run by every
    rank: loss within 1e-4 and every param within 5e-3 (the bounds of the
-   reference's ``tests/test_distributed.py``); each rank's ``rmsnorm`` and
-   ``flash_attention`` launches equal the single-card step's.
+   reference's ``tests/test_distributed.py``), and every gradient the
+   step updates with within 1e-4 of its leaf's largest; each rank's
+   ``rmsnorm`` and ``flash_attention`` launches equal the single-card
+   step's.
 2. olmoe-1b-7b's MoE block at full width (64 experts, top 8, d 2048),
    float32, x (2, 512, 2048) x 0.5, expert parallel over ``model`` 2 and
    split over ``data`` 2: y within 1e-4 of ``moe_batched_local`` run on
@@ -31,6 +33,14 @@ training launcher's ``--mesh host`` builds over four ranks:
    and the slices merge) against the same steps on one card: tokens
    equal, the last logits within 1e-4, each rank's ``decode_attention``
    launches one a layer a step; step seconds.
+5. Case 1 for gemma-2b (2 layers, its 8 q heads whole over ``model``, as
+   its config keeps them), mamba2-370m (2 layers, the SSD heads split over
+   ``model``) and recurrentgemma-9b (3 layers: two RG-LRU blocks, the
+   width split over ``model``, and a local attention block; bf16 AdamW
+   moments, so that its one-card step fits a card): the step
+   equals one card's, the launches are equal on every rank, each rank's
+   SSD / scan / attention input holds its share of the heads, width or
+   rows, and each card's peak memory is logged.
 
 ``--smoke --device cpu`` runs the same on four gloo ranks at smoke sizes
 (a rehearsal on a machine without cards). Rank 0 prints the card's name
@@ -54,7 +64,18 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 ARCH, EP_ARCH = "h2o-danube-1.8b", "olmoe-1b-7b"
+# case 5: the families whose cores split over "model" (or, gemma's heads,
+# stay whole over it), their depth and AdamW moments' dtype:
+# recurrentgemma's one pattern cycle holds two RG-LRU blocks and its local
+# attention, and keeps bf16 moments (as the dry run keeps the largest
+# configs') so that its one-card step fits a card
+FAMILIES = {"gemma-2b": (2, "float32"), "mamba2-370m": (2, "float32"),
+            "recurrentgemma-9b": (3, "bfloat16")}
 LOSS_TOL, PARAM_TOL = 1e-4, 5e-3
+# a first AdamW step in warm-up moves each param by about lr / 100 = 1e-5
+# whatever its gradient: cases 1 and 5 also hold the gradients the step
+# updates with, each leaf within GRAD_RTOL of its largest on one card
+GRAD_RTOL = 1e-4
 EP_Y_TOL, EP_AUX_TOL = 1e-4, 1e-5
 DECODE_LOGIT_TOL = 1e-4
 SIZES = {   # (step B, S), EP x (B, S), launcher (batch, seq, accum, steps),
@@ -105,8 +126,55 @@ def _config(name: str, smoke: bool):
     return smoke_config(name) if smoke else get_config(name)
 
 
-def train_step(dev, mesh, args, sizes) -> dict:
-    """Case 1: one float32 step on the mesh against one card."""
+class _CoreInputs:
+    """The local shapes the shard-local cores take while active:
+    ``ssd_chunked`` (x [b, S, h, P]), ``linear_scan`` (a [b, S, w]) and
+    ``attend`` (q [b, S, h, D]); DTensor calls are left out."""
+
+    def __enter__(self):
+        from repro_torch.models import attention, mamba2, rglru
+        self.shapes = {"ssd": set(), "scan": set(), "attend": set()}
+        self._old = []
+        for mod, name, key, pos in ((mamba2, "ssd_chunked", "ssd", 0),
+                                    (rglru, "linear_scan", "scan", 0),
+                                    (attention, "attend", "attend", 1)):
+            fn = getattr(mod, name)
+            self._old.append((mod, name, fn))
+            setattr(mod, name, self._wrap(fn, key, pos))
+        return self
+
+    def _wrap(self, fn, key, pos):
+        def run(*a, **k):
+            if not hasattr(a[pos], "device_mesh"):
+                self.shapes[key].add(tuple(a[pos].shape))
+            return fn(*a, **k)
+        return run
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._old:
+            setattr(mod, name, fn)
+
+
+def _grad_gap(want, got) -> float:
+    """The largest over the leaves of max |got - want| / max |want| (inf
+    where a leaf of ``want`` is all 0 and ``got``'s is not)."""
+    worst = 0.0
+    for a, b in zip(want, got):
+        b = _whole(b).detach()
+        err = float((a.to(b.device) - b).abs().max())
+        scale = float(a.abs().max())
+        worst = max(worst, err / scale if scale else
+                    (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def train_step(dev, mesh, args, sizes, arch: str = ARCH,
+               layers: int = 2, opt_dtype: str = "float32") -> dict:
+    """Case 1 (and each of case 5's): one float32 step of ``arch`` at
+    full width, ``layers`` layers, on the mesh against one card, and the
+    gradients it updates with (each in its param's placements, then made
+    whole); the shapes each rank's cores took on the mesh; each card's
+    peak memory."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.distributed.sharding import (axis_rules,
@@ -117,52 +185,102 @@ def train_step(dev, mesh, args, sizes) -> dict:
     from repro_torch.training import (OptimizerConfig, init_state,
                                       make_train_step)
     from repro_torch.training.optimizer import tree_leaves
-    cfg = _config(ARCH, args.smoke).replace(
-        num_layers=2, dtype="float32", param_dtype="float32")
+    from repro_torch.training.step import _loss_and_grads
+    cfg = _config(arch, args.smoke).replace(
+        num_layers=layers, dtype="float32", param_dtype="float32")
     model = build_model(cfg, attn_impl="naive" if args.smoke else "chunked")
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     B, S = sizes[0]
     tokens = np.random.default_rng(args.seed + 11).integers(
         0, cfg.vocab_size, (B, S))
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
-    step = make_train_step(model, OptimizerConfig(learning_rate=1e-3))
+    step = make_train_step(model, OptimizerConfig(learning_rate=1e-3,
+                                                  opt_dtype=opt_dtype))
 
     _zero(dev)
     t0 = time.perf_counter()
-    p_one, _, out = step(params, init_state(params), batch)
+    p_one, _, out = step(params, init_state(params, opt_dtype), batch)
     loss_one = float(out["loss"])
     one_s, one_counts = time.perf_counter() - t0, _counts(dev)
+    # the gradients once more (the step returns none), kept on the host
+    g_one = [g.detach().cpu() for g in _loss_and_grads(model, params,
+                                                       batch)[2]]
 
     rules = rules_for_config(cfg)
-    with axis_rules(rules, mesh=mesh):
+    with axis_rules(rules, mesh=mesh), _CoreInputs() as seen:
         sp = shard_params(params, mesh, model.param_axes(), rules)
         bp = tree_shardings(mesh, batch_axes(cfg), rules)
         sb = {k: distribute_tensor(v, mesh, bp[k], src_data_rank=None)
               for k, v in batch.items()}
         _zero(dev)
         t0 = time.perf_counter()
-        p_mesh, _, out = step(sp, init_state(sp), sb)
+        p_mesh, _, out = step(sp, init_state(sp, opt_dtype), sb)
         loss_mesh = float(_whole(out["loss"]))
         mesh_s, mesh_counts = time.perf_counter() - t0, _counts(dev)
         gap = max(float((_whole(a) - b).abs().max())
                   for a, b in zip(tree_leaves(p_mesh), tree_leaves(p_one)))
-    every = [None] * dist.get_world_size()
+        del p_mesh, p_one
+        g_gap = _grad_gap(g_one, _loss_and_grads(model, sp, sb)[2])
+    del sp, g_one
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    every, peaks, shapes = ([None] * dist.get_world_size() for _ in range(3))
     dist.all_gather_object(every, mesh_counts)
-    _check(abs(loss_mesh - loss_one) < LOSS_TOL and gap < PARAM_TOL,
-           f"step: loss {loss_mesh} vs {loss_one}, param gap {gap}")
+    dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(shapes, {k: sorted(v)
+                                    for k, v in seen.shapes.items()})
+    _check(abs(loss_mesh - loss_one) < LOSS_TOL and gap < PARAM_TOL
+           and g_gap <= GRAD_RTOL,
+           f"step {arch}: loss {loss_mesh} vs {loss_one}, param gap {gap}, "
+           f"gradient gap {g_gap} of each leaf's largest")
     _check(all(c == one_counts for c in every),
-           f"step launches a rank {every}, one card {one_counts}")
-    _check(dev.type != "cuda" or all(one_counts.values()),
-           f"the single-card step launched {one_counts}")
-    _log(f"step {ARCH} f32 2 layers B={B} S={S} on a {tuple(mesh.shape)} "
-         f"mesh: loss {loss_mesh:.6f} vs one card {loss_one:.6f} (gap "
-         f"{abs(loss_mesh - loss_one):.3e}, bound {LOSS_TOL}); max param "
-         f"gap {gap:.3e} (bound {PARAM_TOL}); launches a rank {every}, one "
-         f"card {one_counts}; step {mesh_s:.4f} s on the mesh (rank 0), "
-         f"{one_s:.4f} s on one card")
+           f"step {arch} launches a rank {every}, one card {one_counts}")
+    kinds = cfg.layer_kinds()
+    _check(dev.type != "cuda" or (one_counts["rmsnorm"] > 0 and (
+        one_counts["flash_attention"] > 0) == ("attn" in kinds)),
+           f"the single-card step of {arch} launched {one_counts}")
+    _check_shares(cfg, mesh, B, S, shapes)
+    _log(f"step {arch} f32 ({opt_dtype} moments) {layers} layers B={B} "
+         f"S={S} on a "
+         f"{tuple(mesh.shape)} mesh: loss {loss_mesh:.6f} vs one card "
+         f"{loss_one:.6f} (gap {abs(loss_mesh - loss_one):.3e}, bound "
+         f"{LOSS_TOL}); max param gap {gap:.3e} (bound {PARAM_TOL}); "
+         f"gradients within {g_gap:.3e} of each leaf's largest (bound "
+         f"{GRAD_RTOL}); "
+         f"launches a rank {every}, one card {one_counts}; cores' local "
+         f"inputs (rank 0) {shapes[0]}; step {mesh_s:.4f} s on the mesh "
+         f"(rank 0), {one_s:.4f} s on one card; peak GiB a card "
+         f"{[round(v, 2) for v in peaks]}")
     return {"loss_gap": abs(loss_mesh - loss_one), "param_gap": gap,
+            "grad_gap": g_gap,
             "launches": every, "launches_one_card": one_counts,
-            "mesh_s": mesh_s, "one_card_s": one_s}
+            "mesh_s": mesh_s, "one_card_s": one_s, "peak_gib": peaks,
+            "core_inputs": shapes[0]}
+
+
+def _check_shares(cfg, mesh, B: int, S: int, shapes) -> None:
+    """Each rank's cores took its share: its data shard's rows, and its
+    "model" share of mamba2's SSD heads, of the RG-LRU width and of the
+    attention's q heads (all of them where the config keeps them whole,
+    ``shard_attn_heads=False``, as the reference's compiled step does)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    b, tp = B // sizes["data"], sizes["model"]
+    kinds = set(cfg.layer_kinds())
+    want = {"ssd": set(), "scan": set(), "attend": set()}
+    if "ssm" in kinds:
+        s = cfg.ssm
+        heads = s.expand * cfg.d_model // s.head_dim
+        want["ssd"] = {(b, S, heads // tp, s.head_dim)}
+    if "rglru" in kinds:
+        want["scan"] = {(b, S, (cfg.rglru_width or cfg.d_model) // tp)}
+    if "attn" in kinds:
+        hq = cfg.num_heads // (tp if cfg.shard_attn_heads else 1)
+        want["attend"] = {(b, S, hq, cfg.resolved_head_dim)}
+    for r, got in enumerate(shapes):
+        got = {k: {tuple(x) for x in v} for k, v in got.items()}
+        _check(got == want, f"rank {r}'s cores took {got}, want {want}")
 
 
 def ep_block(dev, mesh, args, sizes) -> dict:
@@ -384,6 +502,11 @@ def main() -> int:
         res["launcher"] = launcher(dev, args, sizes)
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         res["decode"] = decode(dev, mesh, args, sizes)
+        res["families"] = {}
+        for arch, (layers, opt_dtype) in FAMILIES.items():
+            torch.cuda.empty_cache() if dev.type == "cuda" else None
+            res["families"][arch] = train_step(dev, mesh, args, sizes, arch,
+                                               layers, opt_dtype)
         if dist.get_rank() == 0:
             if smi:
                 print(smi)

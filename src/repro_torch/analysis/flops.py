@@ -17,9 +17,11 @@ under :class:`FlopCounter`, a dispatch mode that counts the ops
 - a DTensor op is seen once, at its global shapes (the mode returns
   ``NotImplemented`` so DTensor runs it; its local pieces are not counted
   again); an op in the body of the port's ``shard_map`` (DTensor's
-  ``local_map``) runs on local shapes, so it counts times the mesh size,
-  in the forward and, through the autograd nodes the body made, in the
-  backward (``repro_torch.distributed.sharding.track_shard_bodies``).
+  ``local_map``) runs on local shapes, so it counts times the body's
+  distinct shards (the mesh size, less the dims along which every input
+  is replicated and every rank repeats the same work), in the forward
+  and, through the autograd nodes the body made, in the backward
+  (``repro_torch.distributed.sharding.track_shard_bodies``).
 
 DTensor works out an op's output shapes by running the op once more on
 stand-ins of the global shapes (its sharding propagator's tensor-meta
@@ -42,7 +44,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.distributed.sharding import (shard_body_size,
+from repro_torch.distributed.sharding import (in_replayed_forward,
+                                              shard_body_size,
                                               track_shard_bodies)
 
 
@@ -69,30 +72,49 @@ def meta_propagation_method() -> str:
         "from the rank's own ops, and every count would include them")
 
 
+# A strided shard (a split dim flattened into another) finds its local
+# size and offsets from an index tensor that DTensor makes with
+# torch.arange and reads with .tolist(), when it prices a candidate
+# placement and when it redistributes; on a fake tensor .tolist() fails
+_STRIDED_OFFSETS = "local_shard_size_and_offset"
+
+
 @contextlib.contextmanager
 def _skip_meta_propagation():
     """While active, :func:`in_meta_propagation` is true inside DTensor's
-    tensor-meta step (the method is wrapped for the block). Raises if this
-    torch has no such method: the stand-in runs would then be counted as
-    the rank's own work."""
+    tensor-meta step and inside a strided shard's offset arithmetic (the
+    methods are wrapped for the block), and the offset arithmetic runs
+    with the fake mode unset: its index tensor is a real (host) one.
+    Raises if this torch has no tensor-meta step: the stand-in runs would
+    then be counted as the rank's own work."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    name = meta_propagation_method()
-    orig = getattr(ShardingPropagator, name)
+    from torch.distributed.tensor.placement_types import _StridedShard
 
-    @functools.wraps(orig)
-    def wrapped(*args, **kwargs):
-        prev = getattr(_META, "depth", 0)
-        _META.depth = prev + 1
-        try:
-            return orig(*args, **kwargs)
-        finally:
-            _META.depth = prev
+    def marked(orig, unfake: bool):
+        @functools.wraps(orig)
+        def wrapped(*args, **kwargs):
+            prev = getattr(_META, "depth", 0)
+            _META.depth = prev + 1
+            try:
+                with (unset_fake_temporarily() if unfake
+                      else contextlib.nullcontext()):
+                    return orig(*args, **kwargs)
+            finally:
+                _META.depth = prev
+        return wrapped
 
-    setattr(ShardingPropagator, name, wrapped)
+    wraps = [(ShardingPropagator, meta_propagation_method(), False)]
+    if _STRIDED_OFFSETS in _StridedShard.__dict__:
+        wraps.append((_StridedShard, _STRIDED_OFFSETS, True))
+    origs = [(cls, n, cls.__dict__[n]) for cls, n, _ in wraps]
+    for (cls, n, unfake), (_, _, orig) in zip(wraps, origs):
+        setattr(cls, n, marked(getattr(cls, n), unfake))
     try:
         yield
     finally:
-        setattr(ShardingPropagator, name, orig)
+        for cls, n, orig in origs:
+            setattr(cls, n, orig)
 
 
 def in_meta_propagation() -> bool:
@@ -100,11 +122,12 @@ def in_meta_propagation() -> bool:
 
 
 def _shards_of_current_op() -> int:
-    """The mesh size of the shard_map body this op belongs to: the forward
-    body running now, or the body that made the autograd node the
-    backward is running (0: neither)."""
+    """The distinct shards of the shard_map body this op belongs to: the
+    forward body running now, or the body that made the autograd node the
+    backward is running (0: neither). A remat unit's replay in the
+    backward is forward work: only a body it runs counts."""
     size = shard_body_size()
-    if size:
+    if size or in_replayed_forward():
         return size
     node = torch._C._current_autograd_node()
     if node is not None:
@@ -118,7 +141,7 @@ class FlopCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.dtensor_flops = 0.0    # DTensor ops, global shapes
-        self.body_flops = 0.0       # shard_map bodies, times the mesh size
+        self.body_flops = 0.0       # shard_map bodies, times their shards
         self.plain_flops = 0.0      # plain tensors outside any body
         self.saw_dtensor = False
         self._track = None

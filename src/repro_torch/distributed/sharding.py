@@ -95,13 +95,18 @@ def axis_rules(rules: Dict[str, AxisVal], mesh=None):
 def carry_rules(fn: Callable) -> Callable:
     """``fn`` run under the rules and mesh current where this is called,
     in whatever thread calls it: a remat recompute runs in autograd's
-    device thread, and must place its tensors as the forward did."""
+    device thread, and must place its tensors as the forward did. The
+    recompute runs inside the backward, under the autograd node whose
+    saved tensor it rebuilds, so while the counting modes are active
+    (:func:`track_shard_bodies`) ``fn`` is marked as forward work
+    (:func:`in_replayed_forward`): an op of it belongs to a
+    :func:`shard_map` body only if it runs in one."""
     rules, mesh = _current(), current_mesh()
     if rules is None:
         return fn
 
     def run(*args, **kwargs):
-        with _installed(rules, mesh):
+        with _installed(rules, mesh), _replaying():
             return fn(*args, **kwargs)
     return run
 
@@ -362,17 +367,18 @@ def spec_placements(mesh, spec: Sequence,
 
 
 # Counting modes (repro_torch.analysis) that attribute the work of a
-# shard-local body to every rank: how many are active, and the mesh size
-# of the body running in this thread (0 outside one).
+# shard-local body to the ranks: how many are active, and the distinct
+# shards of the body running in this thread (0 outside one).
 _TRACKING = [0]
 
 
 @contextlib.contextmanager
 def track_shard_bodies():
     """While active, :func:`shard_map` marks what its bodies do: in the
-    forward :func:`shard_body_size` is the body's mesh size, and every
-    autograd node a body creates carries ``metadata["shards"]``, so a
-    counter sees that a backward op runs once on each rank."""
+    forward :func:`shard_body_size` is the body's count of distinct pieces
+    of work (:func:`distinct_shards`), and every autograd node a body
+    creates carries it as ``metadata["shards"]``, so a counter sees how
+    many ranks run a backward op's distinct work."""
     _TRACKING[0] += 1
     try:
         yield
@@ -381,9 +387,31 @@ def track_shard_bodies():
 
 
 def shard_body_size() -> int:
-    """The mesh size of the :func:`shard_map` body running in this thread
-    while :func:`track_shard_bodies` is active, else 0."""
+    """The count of distinct pieces of work (:func:`distinct_shards`) of
+    the :func:`shard_map` body running in this thread while
+    :func:`track_shard_bodies` is active, else 0."""
     return getattr(_state, "body", 0)
+
+
+@contextlib.contextmanager
+def _replaying():
+    """Marks the block as a remat unit's forward work while the counting
+    modes are active (see :func:`carry_rules`)."""
+    if not _TRACKING[0]:
+        yield
+        return
+    prev = getattr(_state, "replay", 0)
+    _state.replay = prev + 1
+    try:
+        yield
+    finally:
+        _state.replay = prev
+
+
+def in_replayed_forward() -> bool:
+    """Whether a remat unit's replay (:func:`carry_rules`) is running in
+    this thread while the counting modes are active."""
+    return getattr(_state, "replay", 0) > 0
 
 
 def _tag_body_nodes(outputs, inputs, size: int) -> None:
@@ -425,6 +453,23 @@ def _is_placements(spec) -> bool:
     return all(isinstance(p, Placement) for p in spec)
 
 
+def distinct_shards(mesh, in_specs) -> int:
+    """How many distinct pieces of work a :func:`shard_map` body with
+    ``in_specs`` does over ``mesh``: the product of the sizes of the mesh
+    dims along which some input is split (or a partial sum). Along a dim
+    where every input is replicated each rank repeats the same work, which
+    is one piece of the global program, as the reference's jaxpr count has
+    it (its compiled step repeats such work too, e.g. gemma-2b's attention
+    over ``"model"``). A body whose work depends on the rank's place along
+    a dim takes an input split along it."""
+    n = 1
+    for i in range(mesh.ndim):
+        if any(spec is not None and not isinstance(spec[i], Replicate)
+               for spec in in_specs):
+            n *= mesh.size(i)
+    return n
+
+
 def shard_map(f: Callable, *, mesh, in_specs, out_specs,
               in_grad_specs=None) -> Callable:
     """``f`` run on each rank's local shards: the reference's
@@ -443,7 +488,8 @@ def shard_map(f: Callable, *, mesh, in_specs, out_specs,
         i if g is None else g for g, i in zip(in_grad_specs, in_specs))
     # local_map reads a tuple as one placement list an output
     outs = list(out_specs) if _is_placements(out_specs) else out_specs
-    return local_map(_tracked(f, mesh.size()), out_placements=outs,
+    return local_map(_tracked(f, distinct_shards(mesh, in_specs)),
+                     out_placements=outs,
                      in_placements=tuple(in_specs),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)

@@ -57,7 +57,7 @@ from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import slice_softmax
-from repro_torch.models.layers import apply_rope, dense, dtype_of
+from repro_torch.models.layers import apply_rope, dense, dtype_of, gather_fsdp
 from repro_torch.models.spec import P
 
 NEG_INF = -2.0 ** 30
@@ -150,47 +150,54 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                                softcap=softcap)
     nq, nk = S // q_chunk, Sk // kv_chunk
     scale = D ** -0.5
+    # heads first and the GQA group folded into the query rows: each
+    # block's two products are single bmm calls over the B·K (batch, kv
+    # head) pairs, K / V are cast and laid out once (not once a block),
+    # and the running max and sum keep a trailing dim of 1
+    BK, rows = B * K, G * q_chunk
     qc = q.reshape(B, nq, q_chunk, K, G, D)
-    kc = k.reshape(B, nk, kv_chunk, K, D)
-    vc = v.reshape(B, nk, kv_chunk, K, D)
+    kt = k.to(torch.float32).permute(0, 2, 3, 1).reshape(BK, D, Sk)
+    vt = v.to(torch.float32).permute(0, 2, 1, 3).reshape(BK, Sk, D)
 
     outs = []
     for i in range(nq):
-        q_i = qc[:, i].to(torch.float32) * scale  # [B,Cq,K,G,D]
+        q_i = (qc[:, i].to(torch.float32) * scale).permute(
+            0, 2, 3, 1, 4).reshape(BK, rows, D)               # [BK,G·Cq,D]
         q_lo, q_hi = i * q_chunk, (i + 1) * q_chunk - 1
         j_hi = (q_hi // kv_chunk) if causal else (nk - 1)
         j_lo = 0
         if window is not None:
             j_lo = max(0, (q_lo - window + 1) // kv_chunk)
-        m = torch.full((B, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+        m = torch.full((BK, rows, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
-        l = torch.zeros((B, K, G, q_chunk), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((B, K, G, q_chunk, D), dtype=torch.float32,
+        l = torch.zeros((BK, rows, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((BK, rows, D), dtype=torch.float32,
                           device=q.device)
         qpos = q_lo + torch.arange(q_chunk, device=q.device)
         for j in range(j_lo, j_hi + 1):
-            s = torch.einsum("bqkgd,bskd->bkgqs", q_i,
-                             kc[:, j].to(torch.float32))
-            s = _softcap(s, softcap)
-            kpos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
-            msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
-                             device=q.device)
-            if causal:
-                msk &= kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                msk &= kpos[None, :] > qpos[:, None] - window
-            s = torch.where(msk, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
+            k_lo, k_hi = j * kv_chunk, (j + 1) * kv_chunk
+            s = _softcap(torch.bmm(q_i, kt[:, :, k_lo:k_hi]), softcap)
+            # a block wholly inside the causal band and the window keeps
+            # every score: no mask to build
+            if ((causal and k_hi - 1 > q_lo)
+                    or (window is not None and k_lo <= q_hi - window)):
+                kpos = k_lo + torch.arange(kv_chunk, device=q.device)
+                msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                                 device=q.device)
+                if causal:
+                    msk &= kpos[None, :] <= qpos[:, None]
+                if window is not None:
+                    msk &= kpos[None, :] > qpos[:, None] - window
+                s = torch.where(msk.repeat(G, 1), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p,
-                              vc[:, j].to(torch.float32))
-            acc = acc * corr[..., None] + pv
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.bmm(p, vt[:, k_lo:k_hi])
             m = m_new
-        out_i = acc / torch.clamp(l[..., None], min=1e-30)    # [B,K,G,Cq,D]
-        outs.append(out_i.permute(0, 3, 1, 2, 4))             # [B,Cq,K,G,D]
+        out_i = acc / torch.clamp(l, min=1e-30)
+        outs.append(out_i.reshape(B, K, G, q_chunk, D).permute(
+            0, 3, 1, 2, 4))                                   # [B,Cq,K,G,D]
     out = torch.cat(outs, dim=1).reshape(B, S, Hq, D)
     return out.to(q.dtype)
 
@@ -315,14 +322,9 @@ def decode_attention_slice(q, k_cache, v_cache, index: int, slots: int,
 def head_proj(cfg, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] in cfg.dtype."""
     B, S, _ = x.shape
-    w2 = w.to(dtype_of(cfg)).reshape(w.shape[0], -1)
-    if isinstance(w2, DTensor):
-        # FSDP: gather the embed rows, keep the heads' split. Left to
-        # itself DTensor may split the product's columns over "model",
-        # which cuts a head when there are fewer heads than shards (8 kv
-        # heads over a 16-wide axis) and then cannot view as heads.
-        w2 = w2.redistribute(w2.device_mesh, tuple(
-            Replicate() if p == Shard(0) else p for p in w2.placements))
+    # FSDP: the embed rows gathered, the heads' split kept (8 kv heads
+    # split over a 16-wide axis would not view as heads)
+    w2 = gather_fsdp(w.to(dtype_of(cfg)).reshape(w.shape[0], -1))
     return dense(x, w2).reshape(B, S, w.shape[1], w.shape[2])
 
 
@@ -335,10 +337,23 @@ def _project(cfg, p: dict, x: torch.Tensor):
     return q, k, v
 
 
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """o [B, S, H, hd] -> [B, S, H·hd]. On a mesh the gradient is placed
+    as the merged o was before it is viewed back to heads: DTensor may
+    hand it back split over "model" along the merged dim at a point
+    inside a head (gemma's 8 heads, whole over a 16-wide axis), which no
+    view can undo."""
+    m = o.reshape(*o.shape[:2], -1)
+    if isinstance(m, DTensor) and m.requires_grad:
+        mesh, pl = m.device_mesh, tuple(m.placements)
+        m.register_hook(lambda g: g if tuple(g.placements) == pl
+                        else g.redistribute(mesh, pl))
+    return m
+
+
 def out_proj(cfg, p: dict, o: torch.Tensor) -> torch.Tensor:
     wo = p["wo"].to(dtype_of(cfg))
-    B, S = o.shape[:2]
-    return dense(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
+    return dense(_merge_heads(o), wo.reshape(-1, wo.shape[-1]))
 
 
 def _kernel_route(cfg, x: torch.Tensor, use_kernels: bool) -> bool:

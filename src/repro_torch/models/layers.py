@@ -49,7 +49,7 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # Shard-local calls on DTensors
 # ---------------------------------------------------------------------------
 
-def _batch_rows(t: DTensor) -> Tuple:
+def batch_rows(t: DTensor) -> Tuple:
     """``t``'s placements with only the split of its dim 0 (the batch)
     kept; every other split and any partial sum are made whole."""
     return tuple(p if p == Shard(0) else Replicate() for p in t.placements)
@@ -67,23 +67,33 @@ def _replicated(t, mesh):
     return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim)
 
 
-def batchwise(fn, xs: Tuple, ws: Tuple, n_out: int = 1):
-    """``fn(*xs, *ws)`` on each rank's own batch rows: a norm, or a
-    recurrent block's conv and scan, which run along the sequence. Every
-    x (dim 0 the batch) keeps the split of dim 0 that the first one has
-    and is made whole along every other dim (a partial sum reduced); each
-    w is gathered whole, its local gradient a partial sum over the
-    batch-split mesh dims. ``fn`` returns ``n_out`` tensors (one, or a
-    tuple), each with the batch at dim 0."""
+def batchwise(fn, xs: Tuple, ws: Tuple):
+    """``fn(*xs, *ws)`` on each rank's own batch rows: a norm. Every x
+    (dim 0 the batch) keeps the split of dim 0 that the first one has and
+    is made whole along every other dim (a partial sum reduced); each w is
+    gathered whole, its local gradient a partial sum over the batch-split
+    mesh dims. ``fn`` returns one tensor, the batch at dim 0."""
     mesh = xs[0].device_mesh
-    rows = _batch_rows(xs[0])
+    rows = batch_rows(xs[0])
     wp = (Replicate(),) * mesh.ndim
     return shard_map(fn, mesh=mesh,
                      in_specs=(rows,) * len(xs) + (wp,) * len(ws),
-                     out_specs=rows if n_out == 1 else (rows,) * n_out,
+                     out_specs=rows,
                      in_grad_specs=(None,) * len(xs)
                      + (_partial_where_split(rows),) * len(ws))(
                          *(_replicated(x, mesh) for x in xs), *ws)
+
+
+def gather_fsdp(w: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """A DTensor weight with its FSDP split (its ``dim``, the embed dim)
+    gathered and every other split kept, as the reference's FSDP gathers
+    a weight before its product; left to itself DTensor may instead split
+    the product's contraction and sum the activations over the data axes,
+    or split its columns at a point that cuts a head."""
+    if not isinstance(w, DTensor):
+        return w
+    return w.redistribute(w.device_mesh, tuple(
+        Replicate() if p == Shard(dim) else p for p in w.placements))
 
 
 # ---------------------------------------------------------------------------
@@ -227,15 +237,56 @@ def embed_tokens(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return lshard(x, "batch", "seq", "act_embed")
 
 
+def split_index(t: DTensor, dim: int) -> Tuple[Tuple[int, ...], int, int]:
+    """(the mesh dims that split ``t``'s ``dim``, major first; how many
+    pieces they cut it into; this rank's piece among them)."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    dims = tuple(i for i, p in enumerate(t.placements) if p == Shard(dim))
+    n, index = 1, 0
+    for i in dims:
+        n, index = n * mesh.size(i), index * mesh.size(i) + coord[i]
+    return dims, n, index
+
+
 def _sharded_lookup(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The rows of ``tokens`` from a table split over its vocab (and its
+    FSDP embed dim): each rank reads the rows of its own vocab slice, the
+    tokens outside it as zeros, and the pieces are summed over the mesh
+    dims that split the vocab, as the reference's vocab-split ``take``
+    lowers. The rank gathers its slice's FSDP shards itself (DTensor's
+    redistribute would gather the whole vocab on the way); the backward
+    reduce-scatters them, so the gradient goes into the rank's own slice
+    only."""
     mesh = table.device_mesh
     tokens = _replicated(tokens, mesh)
-    tp = _batch_rows(tokens)
-    return shard_map(lambda t, i: t[i], mesh=mesh,
-                     in_specs=((Replicate(),) * mesh.ndim, tp),
-                     out_specs=tp,
-                     in_grad_specs=(_partial_where_split(tp), None))(
-                         table, tokens)
+    tp = batch_rows(tokens)
+    dims, n, index = split_index(table, 0)
+    fsdp = [i for i, p in enumerate(table.placements) if p == Shard(1)]
+    groups = [(mesh, i) for i in fsdp]
+    partial = [isinstance(tp[i], Shard) for i in fsdp]
+    vl = table.shape[0] // n
+    lo = index * vl
+
+    def local(t, i):
+        t = gather_dim(t, 1, groups, partial)
+        if n == 1:
+            return t[i]
+        j = i - lo
+        inside = (j >= 0) & (j < vl)
+        rows = t[torch.where(inside, j, 0)]
+        return torch.where(inside[..., None], rows, 0)
+
+    tab = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+                for p in table.placements)
+    # a rank's gradient of its slice: a partial sum over the batch-split
+    # dims that do not split the table (those that do reduce-scatter it)
+    tab_grad = tuple(Partial() if p == Replicate() and isinstance(r, Shard)
+                     else p for p, r in zip(tab, tp))
+    out = tuple(Partial() if i in dims else p for i, p in enumerate(tp))
+    x = shard_map(local, mesh=mesh, in_specs=(tab, tp), out_specs=out,
+                  in_grad_specs=(tab_grad, None))(table, tokens)
+    return x.redistribute(mesh, tp)
 
 
 def logits_from_hidden(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -261,9 +312,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL in float32: logits [..., V], integer labels [...];
     with ``mask`` (same shape as labels) the masked sum over
-    ``max(mask.sum(), 1)``, as the reference. On a DTensor each rank sums
-    its own rows' NLL (the logits gathered along the vocab first) and the
-    sums are reduced over the ranks."""
+    ``max(mask.sum(), 1)``, as the reference. On a DTensor the logits stay
+    split over the vocab: see :func:`_sharded_cross_entropy`."""
     if isinstance(logits, DTensor):
         return _sharded_cross_entropy(logits, labels, mask)
     logits = logits.to(torch.float32)
@@ -276,15 +326,127 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
+def _all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced by ``op`` over each of ``groups`` (``(mesh, dim)``
+    pairs) in turn, through the functional collectives (which the counting
+    modes see)."""
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.all_reduce(t, op, g)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over ``groups`` inside a shard-local body whose later work
+    differs from rank to rank: each rank's cotangent is then a partial
+    one, so the backward is the same sum (written out here, as not every
+    torch registers one for the functional all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), "sum", ctx.groups), None
+
+
+class _GatherDim(torch.autograd.Function):
+    """A body's local shard gathered along ``dim`` over ``group`` (a
+    ``(mesh, mesh dim)`` pair). The backward reduce-scatters the gradient
+    where each rank's is a partial sum (its own batch rows: FSDP), and
+    takes the rank's own slice where every rank's is the same. The
+    gathered dim is moved to the front first: a collective along another
+    dim stages through a buffer of the group's shards stacked on dim 0."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+        ctx.piece = t.shape[dim]
+        t = t.movedim(dim, 0).contiguous()
+        return _funcol("all_gather")(t, 0, group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.partial:
+            mesh, i = ctx.group
+            lo = mesh.get_local_rank(i) * ctx.piece
+            return g.narrow(ctx.dim, lo, ctx.piece), None, None, None
+        g = g.movedim(ctx.dim, 0).contiguous()
+        return _funcol("reduce_scatter")(g, "sum", 0, ctx.group).movedim(
+            0, ctx.dim), None, None, None
+
+
+def _funcol(name: str):
+    """The functional collective ``name`` (``all_gather`` /
+    ``reduce_scatter``): ``*_single`` on a torch that has it, else the
+    older ``*_tensor``."""
+    from torch.distributed import _functional_collectives as funcol
+    return getattr(funcol, name + "_single", None) or getattr(
+        funcol, name + "_tensor")
+
+
+def gather_dim(t: torch.Tensor, dim: int, groups, partial) -> torch.Tensor:
+    """A body's local ``t`` gathered along ``dim`` over each of ``groups``
+    (``(mesh, mesh dim)`` pairs, major first), differentiably; ``partial``
+    says, for each group, whether the ranks' gradients are partial sums
+    (see ``_GatherDim``)."""
+    for g, part in reversed(list(zip(groups, partial))):
+        t = _GatherDim.apply(t, dim, g, part)
+    return t
+
+
+def all_reduce_sum(t: torch.Tensor, groups) -> torch.Tensor:
+    """Differentiable sum of a body's local ``t`` over ``groups``; ``t``
+    itself where there are none."""
+    return _AllReduceSum.apply(t, groups) if groups else t
+
+
+class _VocabSplitNLL(torch.autograd.Function):
+    """The NLL of each row from one rank's slice ``[lo, lo + V_local)`` of
+    the vocab: the slice's max, then a max over ``groups`` (the mesh dims
+    that split the vocab); the slice's sum of ``exp(l - max)`` and its gold
+    logit (0 where the label is in another slice), then a sum over them.
+    The gradient of the slice is ``softmax - onehot`` on the slice, which
+    needs no collective. No rank holds a row of the whole vocab."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, groups):
+        x = logits.to(torch.float32)
+        m = _all_reduce(x.amax(dim=-1), "max", groups)
+        j = labels.long() - lo
+        inside = (j >= 0) & (j < x.shape[-1])
+        j = torch.where(inside, j, 0)
+        gold = torch.where(inside, torch.gather(x, -1, j[..., None])
+                           .squeeze(-1), 0.0)
+        se = torch.exp(x - m[..., None]).sum(dim=-1)
+        se, gold = _all_reduce(torch.stack([se, gold]), "sum", groups)
+        ctx.save_for_backward(logits, m, se, j, inside)
+        return torch.log(se) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, se, j, inside = ctx.saved_tensors
+        p = torch.exp(logits.to(torch.float32) - m[..., None]) / se[..., None]
+        p = p.scatter_add(-1, j[..., None], -inside.to(p.dtype)[..., None])
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
 def _sharded_cross_entropy(logits: DTensor, labels, mask) -> DTensor:
+    """Each rank's rows' NLL summed (``_VocabSplitNLL`` over its vocab
+    slice), the sums reduced over the ranks that split the rows."""
     mesh = logits.device_mesh
-    rows = _batch_rows(logits)          # labels and mask split as these
+    vdim = logits.ndim - 1
+    rows = batch_rows(logits)          # labels and mask split as these
+    dims, _, index = split_index(logits, vdim)
+    vl = logits.to_local().shape[-1]
+    groups = [(mesh, i) for i in dims]
+    lp = tuple(Shard(vdim) if i in dims else p for i, p in enumerate(rows))
     sums = _partial_where_split(rows)
 
     def local(logits, labels, mask):
-        logits = logits.to(torch.float32)
-        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-            logits, -1, labels[..., None].long()).squeeze(-1)
+        nll = _VocabSplitNLL.apply(logits, labels, index * vl, groups)
         if mask is None:
             return nll.sum(), torch.tensor(float(nll.numel()),
                                            device=nll.device)
@@ -292,7 +454,7 @@ def _sharded_cross_entropy(logits: DTensor, labels, mask) -> DTensor:
         return (nll * mask).sum(), mask.sum()
 
     num, den = shard_map(local, mesh=mesh,
-                         in_specs=(rows, rows, None if mask is None else rows),
+                         in_specs=(lp, rows, None if mask is None else rows),
                          out_specs=(sums, sums))(
                              logits, _replicated(labels, mesh),
                              _replicated(mask, mesh))

@@ -15,9 +15,12 @@ takes 9 steps a layer. Decode is the O(1) update. The block wraps the
 recurrence with in / out projections, a short causal conv and a
 GeGLU-gated output branch, as the reference does. It has no Pallas
 kernel, so it runs no port kernel. On a device mesh the projections are
-DTensor products and the conv, gates and scan run on each rank's batch
-rows with the whole width (the reference splits the width over "model",
-``act_rnn``); the block's output is constrained as the reference's is.
+DTensor products; ``in_x`` / ``in_gate`` split their columns (``"rnn"``)
+and everything after them is elementwise over the width, so the conv,
+the gates, the scan (and a decode step's state update) run on each
+rank's width slice with no collective (:func:`_split_width`), as the
+reference places ``xb`` (``act_rnn``). ``out``'s rows make the block's
+output a partial sum, constrained as the reference's is.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import lshard
-from repro_torch.models.layers import batchwise, dense, dtype_of
+from repro_torch.distributed.sharding import lshard, shard_map
+from repro_torch.models.layers import (batch_rows, dense, dtype_of,
+                                       gather_fsdp, split_index)
 from repro_torch.models.mamba2 import _causal_conv
 from repro_torch.models.spec import P
 
@@ -92,23 +96,50 @@ def _rglru_core(cfg, xb, gb, *ws):
     log_a, bix = _gates(p, xb)
     h = linear_scan(torch.exp(log_a), bix)
     y = h * F.gelu(gb.to(torch.float32), approximate="tanh")
-    return y, conv_in[:, -(k - 1):, :].to(dt), h[:, -1, :]
+    # copies: a view would keep each layer's whole [B,S,W] input and
+    # scan alive for as long as a prefill holds its cache
+    return y, conv_in[:, -(k - 1):, :].to(dt).clone(), h[:, -1, :].clone()
+
+
+def _split_width(cfg, p: dict, core, rows, xs, out_dims):
+    """``core(cfg, *xs, *ws)`` on each rank's slice of the width and its
+    batch rows (``rows``: the block input's placements): the mesh dims
+    that split ``a_param`` (``"rnn"``) split the last dim of every x (the
+    branches, the conv window, the state) and the params', and dim
+    ``out_dims[i]`` of output i. The params' gradients are partial sums
+    over the batch-split dims."""
+    mesh = xs[0].device_mesh
+    dims, _, _ = split_index(p["a_param"], 0)
+
+    def on(d, pl):
+        return tuple(Shard(d) if i in dims else r for i, r in enumerate(pl))
+
+    whole = (Replicate(),) * mesh.ndim
+    sums = tuple(Partial() if isinstance(r, Shard) else r for r in rows)
+    ws = tuple(p[n] for n in _CORE)
+    return shard_map(
+        functools.partial(core, cfg), mesh=mesh,
+        in_specs=tuple(on(x.ndim - 1, rows) for x in xs)
+        + tuple(on(w.ndim - 1, whole) for w in ws),
+        out_specs=tuple(on(d, rows) for d in out_dims),
+        in_grad_specs=(None,) * len(xs) + tuple(on(w.ndim - 1, sums)
+                                                for w in ws))(*xs, *ws)
 
 
 def rglru_apply(cfg, p: dict, x: torch.Tensor, *, return_state: bool = False):
     """Full-sequence Griffin recurrent block. x: [B,S,D] -> ([B,S,D],
-    (conv window [B,k-1,W], h [B,W] f32) or None). On a DTensor the conv
-    and the scan run on each rank's batch rows (``batchwise``), the width
-    whole."""
+    (conv window [B,k-1,W], h [B,W] f32) or None). On a DTensor each rank
+    runs its slice of the width (:func:`_split_width`)."""
     dt = dtype_of(cfg)
-    xb = torch.matmul(x, p["in_x"].to(dt))
-    gb = torch.matmul(x, p["in_gate"].to(dt))
-    ws = tuple(p[n] for n in _CORE)
+    xb = torch.matmul(x, gather_fsdp(p["in_x"].to(dt)))
+    gb = torch.matmul(x, gather_fsdp(p["in_gate"].to(dt)))
     if isinstance(xb, DTensor):
-        y, conv_state, h_last = batchwise(
-            functools.partial(_rglru_core, cfg), (xb, gb), ws, n_out=3)
+        y, conv_state, h_last = _split_width(cfg, p, _rglru_core,
+                                             batch_rows(x), (xb, gb),
+                                             (2, 2, 1))
     else:
-        y, conv_state, h_last = _rglru_core(cfg, xb, gb, *ws)
+        y, conv_state, h_last = _rglru_core(cfg, xb, gb,
+                                            *(p[n] for n in _CORE))
     out = torch.matmul(y.to(dt), p["out"].to(dt))
     out = lshard(out, "batch", "seq", "act_embed")
     if return_state:
@@ -141,18 +172,17 @@ def _rglru_decode_core(cfg, xb, gb, conv_state, h, *ws):
 def rglru_decode_step(cfg, p: dict, x: torch.Tensor, conv_state, h):
     """One-token step. x: [B,1,D]; conv_state [B,k-1,W]; h [B,W] f32 ->
     (out [B,1,D], (new conv_state, new h)). Returns new tensors. On a
-    DTensor the conv and the state update run on each rank's batch rows
-    (``batchwise``)."""
+    DTensor each rank updates its slice of the width
+    (:func:`_split_width`)."""
     dt = dtype_of(cfg)
-    xb = dense(x, p["in_x"].to(dt))
-    gb = dense(x, p["in_gate"].to(dt))
-    ws = tuple(p[n] for n in _CORE)
+    xb = dense(x, gather_fsdp(p["in_x"].to(dt)))
+    gb = dense(x, gather_fsdp(p["in_gate"].to(dt)))
     if isinstance(xb, DTensor):
-        y, window, h_new = batchwise(
-            functools.partial(_rglru_decode_core, cfg),
-            (xb, gb, conv_state, h), ws, n_out=3)
+        y, window, h_new = _split_width(cfg, p, _rglru_decode_core,
+                                        batch_rows(x), (xb, gb, conv_state,
+                                                        h), (1, 2, 1))
     else:
         y, window, h_new = _rglru_decode_core(cfg, xb, gb, conv_state, h,
-                                              *ws)
+                                              *(p[n] for n in _CORE))
     out = torch.matmul(y.to(dt), p["out"].to(dt))[:, None, :]
     return out, (window, h_new)

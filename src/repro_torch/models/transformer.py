@@ -47,7 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distributed.sharding import (carry_rules, current_mesh,
-                                              lshard)
+                                              current_rules, lshard)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
@@ -115,6 +115,19 @@ def copy_state(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
     return x if m == 1.0 else x * m   # x * 1 is x: one launch saved
+
+
+def _residual(o: torch.Tensor) -> torch.Tensor:
+    """A block's output placed as the residual stream it is added to. With
+    a sequence-parallel residual (a ``"residual_seq"`` rule) that is the
+    reduce-scatter of its partial sum; left to the add, DTensor hands its
+    gradient back split on the sequence, and a matmul's backward flattens
+    that to a strided shard whose cost DTensor cannot price on fake
+    tensors. Without the rule, a no-op."""
+    rules = current_rules()
+    if not rules or rules.get("residual_seq") is None:
+        return o
+    return lshard(o, "batch", "residual_seq", "act_embed")
 
 
 class LM:
@@ -240,24 +253,24 @@ class LM:
                                        impl=self.attn_impl,
                                        kv_for_cache=collect_cache,
                                        use_kernels=self.use_kernels)
-            x = x + _scaled(o, cfg.residual_multiplier)
+            x = x + _residual(_scaled(o, cfg.residual_multiplier))
             h2 = self._norm(x, p["norm2"])
             if cfg.is_moe:
                 o2, a = moe.moe_apply(cfg, p["moe"], h2, mesh=current_mesh())
                 aux = aux + a
             else:
                 o2 = L.mlp_apply(cfg, p["mlp"], h2)
-            x = x + _scaled(o2, cfg.residual_multiplier)
+            x = x + _residual(_scaled(o2, cfg.residual_multiplier))
         elif kind == "ssm":
             o, cache = mamba2.mamba_apply(cfg, p["ssm"], h,
                                           return_state=collect_cache)
-            x = x + o
+            x = x + _residual(o)
         elif kind == "rglru":
             o, cache = rglru.rglru_apply(cfg, p["rglru"], h,
                                          return_state=collect_cache)
-            x = x + o
+            x = x + _residual(o)
             h2 = self._norm(x, p["norm2"])
-            x = x + L.mlp_apply(cfg, p["mlp"], h2)
+            x = x + _residual(L.mlp_apply(cfg, p["mlp"], h2))
         else:
             raise ValueError(kind)
         # sequence-parallel residual annotation (no-op unless the

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _entry(fn, rank, world, root, timeout, args):
@@ -169,8 +170,151 @@ def _counting(calls, layers, attn):
     return undo
 
 
+class LocalShapes(TorchDispatchMode):
+    """A dispatch mode that records the shape of every tensor each op
+    outputs on this rank's local tensors (a DTensor op is let through, and
+    its local pieces come back to the mode)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else [out]):
+            if isinstance(t, torch.Tensor):
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def vocab_split(mesh, logits_np, labels_np, mask_np, table_np, tokens_np,
+                ct_np):
+    """The cross entropy of vocab-split logits (rows split over "data",
+    vocab over "model") and the lookup of a vocab-split table, their values
+    and gradients, and every local tensor shape the ranks' ops made."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.distributed.sharding import axis_rules, make_rules
+    from repro_torch.models import layers
+
+    def whole(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().numpy()
+
+    out = {}
+    rows, whole_model = (Shard(0), Shard(2)), (Shard(0), Replicate())
+    with axis_rules(make_rules(), mesh=mesh):
+        lg = distribute_tensor(torch.from_numpy(logits_np), mesh, rows,
+                               src_data_rank=None).requires_grad_()
+        lab = distribute_tensor(torch.from_numpy(labels_np), mesh,
+                                whole_model, src_data_rank=None)
+        for name, mask in (("ce", None), ("ce_masked", mask_np)):
+            mk = None if mask is None else distribute_tensor(
+                torch.from_numpy(mask), mesh, whole_model,
+                src_data_rank=None)
+            with LocalShapes() as mode:
+                loss = layers.cross_entropy(lg, lab, mk)
+                g, = torch.autograd.grad(loss, [lg])
+            out[name] = {"loss": float(whole(loss)), "grad": whole(g),
+                         "shapes": mode.shapes}
+        tab = distribute_tensor(torch.from_numpy(table_np), mesh,
+                                (Shard(1), Shard(0)),
+                                src_data_rank=None).requires_grad_()
+        with LocalShapes() as mode:
+            x = layers._sharded_lookup(tab, torch.from_numpy(tokens_np))
+            g, = torch.autograd.grad((x * torch.from_numpy(ct_np)).sum(),
+                                     [tab])
+        out["lookup"] = {"x": whole(x), "grad": whole(g),
+                         "grad_placements": tuple(g.placements),
+                         "shapes": mode.shapes}
+    return out
+
+
+def family_steps(mesh_of, cases):
+    """One sharded train step of each ``cases[arch] = (cfg overrides of
+    the smoke config, mesh shape, params as numpy, tokens)``: (loss, whole
+    params), the gradients the step updates with (each redistributed to
+    its param's placements, as the step does, then made whole) and what
+    each rank's core took as input (SSD heads, RG-LRU width, attention
+    rows and heads)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.sharding import (axis_rules, shard_params,
+                                                  rules_for_config,
+                                                  tree_shardings)
+    from repro_torch.models import attention, batch_axes, build_model
+    from repro_torch.models import mamba2, rglru
+    from repro_torch.training import (OptimizerConfig, init_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.step import _loss_and_grads
+
+    def whole(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().numpy()
+
+    out = {}
+    for arch, (ov, shape, params_np, tokens) in cases.items():
+        cfg = smoke_config(arch).replace(**ov)
+        m = build_model(cfg, attn_impl="naive")
+        mesh = mesh_of(shape)
+        rules = rules_for_config(cfg)
+        seen = _CoreInputs(attention, mamba2, rglru)
+        try:
+            params = lm_params_from_numpy(params_np)
+            step = make_train_step(m, OptimizerConfig(learning_rate=1e-3))
+            with axis_rules(rules, mesh=mesh):
+                sp = shard_params(params, mesh, m.param_axes(), rules)
+                bp = tree_shardings(mesh, batch_axes(cfg), rules)
+                sb = {"tokens": distribute_tensor(
+                    torch.from_numpy(tokens), mesh, bp["tokens"],
+                    src_data_rank=None)}
+                p1, _, m1 = step(sp, init_state(sp), sb)
+                grads = iter(_loss_and_grads(m, sp, sb)[2])
+                grads = tree_map(lambda _: whole(next(grads)), sp)
+        finally:
+            seen.undo()
+        out[arch] = {"loss": float(whole(m1["loss"])),
+                     "params": tree_map(whole, p1), "grads": grads,
+                     "inputs": seen.shapes}
+    return out
+
+
+class _CoreInputs:
+    """Records the local shapes the shard-local cores take:
+    ``ssd_chunked`` (x [b, S, h, P]), ``linear_scan`` (a [b, S, w]) and
+    ``attend`` (q [b, S, h, D]), patched in their modules for the block."""
+
+    def __init__(self, attention, mamba2, rglru):
+        self.shapes = {"ssd": [], "scan": [], "attend": []}
+        self._old = []
+        for mod, name, key, pos in ((mamba2, "ssd_chunked", "ssd", 0),
+                                    (rglru, "linear_scan", "scan", 0),
+                                    (attention, "attend", "attend", 1)):
+            fn = getattr(mod, name)
+            self._old.append((mod, name, fn))
+            setattr(mod, name, self._wrap(fn, key, pos))
+
+    def _wrap(self, fn, key, pos):
+        def run(*a, **k):
+            if not hasattr(a[pos], "device_mesh"):
+                self.shapes[key].append(tuple(a[pos].shape))
+            return fn(*a, **k)
+        return run
+
+    def undo(self):
+        for mod, name, fn in self._old:
+            setattr(mod, name, fn)
+
+
 def sharded_lm(rank, world, arch, layers_n, params_np, tokens, moe_np, x_moe,
-               ct_moe, launcher_argv):
+               ct_moe, launcher_argv, vocab_np, family_cases):
     """Every sharded-LM case on one 4-rank world; rank 0's view of each
     result (whole values, as numpy)."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -195,8 +339,15 @@ def sharded_lm(rank, world, arch, layers_n, params_np, tokens, moe_np, x_moe,
         return t.detach().numpy()
 
     out = {}
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def mesh_of(shape):
+        return init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+
+    mesh = mesh_of((2, 2))
     rules = make_rules(shard_attn_heads=True)
+    out["vocab"] = vocab_split(mesh, *vocab_np)
+    out["family_steps"] = family_steps(mesh_of, family_cases)
     cfg = smoke_config(arch).replace(num_layers=layers_n)
     batch = {"tokens": torch.from_numpy(tokens)}
     for route in ("plain", "kernels", "remat"):

@@ -6,7 +6,13 @@ it traces.
   host devices with its mesh swapped the same way (each in a subprocess,
   as ``tests/test_distributed.py`` runs the reference's): gemma-2b
   ``decode_32k`` and h2o-danube-1.8b ``train_4k`` at smoke width through
-  ``cfg_overrides``. ``model_flops_per_device`` is exact;
+  ``cfg_overrides``, and (``FAMILY_CELLS``) gemma-2b with fewer q heads
+  than ``"model"`` kept whole over it, mamba2 and recurrentgemma
+  ``train_4k`` and ``prefill_32k``, mamba2's ``decode_32k``, olmoe's and
+  kimi's ``train_4k`` under remat: FLOPs a device equal but for ops each
+  named in ``_named_difference``, gemma's rank-local dots the
+  reference's HLO dots (both repeat the replicated heads' attention on
+  each ``"model"`` rank). ``model_flops_per_device`` is exact;
   ``flops_per_device`` (the port's FLOP counter against the reference's
   jaxpr count) is equal; ``argument_size_in_bytes`` is equal to the byte
   (rank 0's shards of the same params, optimizer state, batch and cache),
@@ -70,6 +76,30 @@ SMOKE = {"num_layers": 2, "d_model": 128, "num_heads": 4, "head_dim": 32,
          "d_ff": 256, "vocab_size": 512}
 CELLS = (("gemma-2b", "decode_32k", dict(SMOKE, num_kv_heads=1)),
          ("h2o-danube-1.8b", "train_4k", dict(SMOKE, num_kv_heads=2)))
+# the cells the sharded LM of every family must lower as the reference
+# does: gemma with fewer q heads (2) than the "model" axis (4), kept whole
+# over it (its config's shard_attn_heads=False); mamba2's SSD heads and
+# recurrentgemma's RG-LRU width split over "model"; recurrentgemma's
+# residual sequence-parallel (its seq_parallel). One layer each where the
+# pattern allows, to keep the trace short.
+GEMMA = dict(SMOKE, num_layers=1, num_heads=2, num_kv_heads=1)
+MAMBA = dict(SMOKE, num_layers=1, d_ff=0,
+             ssm={"state_dim": 16, "head_dim": 16, "expand": 2,
+                  "conv_dim": 4, "chunk": 32, "n_groups": 1})
+GRIFFIN = dict(SMOKE, num_layers=3, num_kv_heads=1, rglru_width=128,
+               local_attn_window=64)
+# the EP block under full remat (olmoe's train_4k was 1.35x the
+# reference's: the counter charged remat's replay to the EP body's
+# shards), and kimi's gradient accumulation over 4 micro-batches
+EXPERTS = {"num_experts": 8, "top_k": 2, "d_ff_expert": 64,
+           "impl": "batched"}
+OLMOE = dict(SMOKE, num_layers=1, num_kv_heads=4, moe=EXPERTS)
+KIMI = dict(SMOKE, num_layers=1, num_kv_heads=2, moe=EXPERTS)
+FAMILY_CELLS = tuple((a, s, ov) for a, ov in (
+    ("gemma-2b", GEMMA), ("mamba2-370m", MAMBA),
+    ("recurrentgemma-9b", GRIFFIN)) for s in ("train_4k", "prefill_32k")) + (
+    ("mamba2-370m", "decode_32k", MAMBA), ("olmoe-1b-7b", "train_4k", OLMOE),
+    ("kimi-k2-1t-a32b", "train_4k", KIMI))
 MULTI = ("h2o-danube-1.8b", "decode_32k",
          dict(SMOKE, d_model=256, num_heads=16, num_kv_heads=8, head_dim=16,
               d_ff=512))
@@ -115,8 +145,13 @@ _REFERENCE = """
         walk(mod.entry, 1)
         return ops
 
+    from repro.configs.base import MoEConfig, SSMConfig
     out = {}
     for arch, shape, ov in CELLS:
+        if "ssm" in ov:
+            ov = dict(ov, ssm=SSMConfig(**ov["ssm"]))
+        if "moe" in ov:
+            ov = dict(ov, moe=MoEConfig(**ov["moe"]))
         rec, compiled = dr.lower_cell(arch, shape, False, cfg_overrides=ov)
         rec["collective_ops"] = collective_ops(compiled.as_text())
         out[arch + "/" + shape] = rec
@@ -146,44 +181,84 @@ _PORT = """
     c = mode.cost()
     probe = {"dot_flops": c.dot_flops, "global_flops": c.global_flops,
              "bytes": c.bytes_accessed}
+    # a strided shard: a [16, 64, 32] gradient split over "data" on its
+    # rows and over "model" on its sequence, flattened for a weight's
+    # gradient product (a sequence-parallel residual's, on the 512-rank
+    # mesh); DTensor reads its offsets with .tolist()
+    mesh2 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        g = distribute_tensor(torch.empty(16, 64, 32), mesh2,
+                              [Shard(0), Shard(1)])
+        h = distribute_tensor(torch.empty(16, 64, 48), mesh2,
+                              [Shard(0), Shard(2)])
+        with OpCostMode() as mode:
+            w = h.reshape(-1, 48).t() @ g.reshape(-1, 32)
+    probe["strided"] = [list(w.shape), mode.cost().global_flops]
     real = mesh_mod.make_production_mesh
     mesh_mod.make_production_mesh = (
         lambda multi_pod=False: mesh_mod.make_host_mesh(2, 4))
+    from repro_torch.configs.base import MoEConfig, SSMConfig
     out = {}
     for arch, shape, ov in CELLS:
+        if "ssm" in ov:
+            ov = dict(ov, ssm=SSMConfig(**ov["ssm"]))
+        if "moe" in ov:
+            ov = dict(ov, moe=MoEConfig(**ov["moe"]))
         rec, _ = dr.lower_cell(arch, shape, False, cfg_overrides=ov)
         out[arch + "/" + shape] = rec
     dist.destroy_process_group()
     mesh_mod.make_production_mesh = real
-    arch, shape, ov = MULTI
-    rec, _ = dr.lower_cell(arch, shape, True, cfg_overrides=ov)
-    out["multi"] = rec
-    out["world"] = dist.get_world_size()
+    if MULTI:
+        arch, shape, ov = MULTI
+        rec, _ = dr.lower_cell(arch, shape, True, cfg_overrides=ov)
+        out["multi"] = rec
+        out["world"] = dist.get_world_size()
     out["probe"] = probe
     print("RECORDS" + json.dumps(out))
 """
 
 
-def _run(code: str, env_extra: dict) -> dict:
+def _start(code: str, env_extra: dict, cells, multi) -> subprocess.Popen:
     env = dict(os.environ)
     env.update(env_extra)
     env["PYTHONPATH"] = str(REPO / "src")
-    head = f"CELLS = {CELLS!r}\nMULTI = {MULTI!r}\n"
-    out = subprocess.run(
+    head = f"CELLS = {cells!r}\nMULTI = {multi!r}\n"
+    return subprocess.Popen(
         [sys.executable, "-c", head + textwrap.dedent(code)],
-        capture_output=True, text=True, env=env,
-        timeout=SUBPROCESS_TIMEOUT_S)
-    assert out.returncode == 0, out.stderr[-4000:]
-    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RECORDS")]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _records(proc: subprocess.Popen) -> dict:
+    try:
+        out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    assert proc.returncode == 0, err[-4000:]
+    line = [ln for ln in out.splitlines() if ln.startswith("RECORDS")]
     return json.loads(line[-1][len("RECORDS"):])
 
 
 @pytest.fixture(scope="module")
 def records():
-    ref = _run(_REFERENCE, {"XLA_FLAGS":
-                            "--xla_force_host_platform_device_count=8",
-                            "JAX_PLATFORMS": "cpu"})
-    port = _run(_PORT, {})
+    """Both packages' records of CELLS (and the port's of MULTI) and of
+    FAMILY_CELLS, traced in six subprocesses at once."""
+    ref_env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+               "JAX_PLATFORMS": "cpu"}
+    halves = (FAMILY_CELLS[::2], FAMILY_CELLS[1::2])
+    procs = [_start(_REFERENCE, ref_env, CELLS, None),
+             _start(_PORT, {}, CELLS, MULTI)]
+    procs += [_start(code, env, cells, None) for cells in halves
+              for code, env in ((_REFERENCE, ref_env), (_PORT, {}))]
+    try:
+        ref, port, *fam = [_records(p) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, got in enumerate(fam):
+        (ref if i % 2 == 0 else port).update(
+            {k: v for k, v in got.items() if k != "probe"})
     return SimpleNamespace(ref=ref, port=port)
 
 
@@ -212,6 +287,88 @@ def test_lower_cell_matches_reference(records, cell):
     assert p["xla_cost_flops_loop_once"] is None
     assert p["loop_trip_counts"] == []
     _check_collectives(cell, r, p)
+
+
+def _named_difference(cell: str, ov: dict) -> float:
+    """The reference's FLOPs a device that the port's count has not, op by
+    op (0 for the cells with none).
+
+    - mamba2: its SSD writes two three-operand einsums
+      (``bclhn,bclhp,bclh->bchpn``, ``bclhn,bchpn,bclh->bclhp``) whose
+      ``bclh`` factor jnp's contraction path lowers as a ``dot_general``
+      with no contracting dim, which the reference's jaxpr count charges
+      2 FLOPs an element of [b, S, H, P]; the port multiplies it in
+      elementwise (no matmul).
+    - olmoe, kimi: the reference routes inside its EP ``shard_map``, so each
+      "model" rank repeats the router product [T / data, d] x [d, E] on
+      its data shard's tokens, and the jaxpr count charges the body times
+      the mesh size; the port routes once on the DTensors, before its EP
+      body (``models/moe.py`` ``_moe_ep``).
+
+    - mamba2's decode step: the state update's outer product
+      ``bhn,bhp->bhpn`` is such a dot in the reference (2 FLOPs an
+      element of [B, H, P, N]) and a broadcast multiply in the port.
+
+    Each runs once in a forward; a train step adds remat's recompute and
+    the two operands' gradients."""
+    from repro_torch.configs import SHAPES
+    shape = SHAPES[cell.split("/")[1]]
+    runs = 4 if shape.kind == "train" else 1
+    tokens = shape.global_batch * shape.seq_len
+    model = 4                                           # the (2, 4) mesh
+    if cell == "mamba2-370m/decode_32k":
+        s = ov["ssm"]
+        d_in = s["expand"] * ov["d_model"]
+        per_run = 2.0 * shape.global_batch * d_in * s["state_dim"]  # BHPN
+    elif cell.startswith("mamba2"):
+        d_in = ov["ssm"]["expand"] * ov["d_model"]
+        per_run = 2 * 2.0 * tokens * d_in               # two dots, b·S·H·P
+    elif "moe" in ov:
+        per_run = (model - 1) * 2.0 * tokens * ov["d_model"] * \
+            ov["moe"]["num_experts"]
+    else:
+        return 0.0
+    return ov["num_layers"] * runs * per_run / 8
+
+
+@pytest.mark.parametrize("cell", [f"{a}/{s}" for a, s, _ in FAMILY_CELLS])
+def test_family_cells_match_reference(records, cell):
+    """gemma's replicated heads, mamba2's split SSD heads, recurrentgemma's
+    split RG-LRU width and sequence-parallel residual lower as the
+    reference's, and the EP block under remat (olmoe; kimi with its
+    gradient accumulation): model FLOPs exact,
+    FLOPs a device equal but for the ops named in _named_difference,
+    argument bytes equal."""
+    r, p = records.ref[cell], records.port[cell]
+    ov = {f"{a}/{s}": o for a, s, o in FAMILY_CELLS}[cell]
+    assert p["model_flops_per_device"] == r["model_flops_per_device"]
+    extra = _named_difference(cell, ov)
+    assert p["flops_per_device"] + extra == pytest.approx(
+        r["flops_per_device"], rel=1e-12), (p["flops_per_device"], extra,
+                                            r["flops_per_device"])
+    index_bytes = 4 if "decode" in cell else 0      # as in the test above
+    assert (p["memory_analysis"]["argument_size_in_bytes"] + index_bytes
+            == r["memory_analysis"]["argument_size_in_bytes"])
+    own = p["hlo_dot_flops_per_device"]
+    if cell.startswith("gemma"):
+        # the 2 q heads stay whole over "model" (shard_attn_heads=False):
+        # each model rank repeats its data shard's attention, in the
+        # reference's compiled step too (its score products are
+        # [128, 1024, 1024] a device at train_4k: the data shard's whole
+        # batch). The FLOPs a device count that work once, as the
+        # reference's jaxpr does; the dots each rank runs are the
+        # reference's HLO dots
+        assert own == pytest.approx(r["hlo_dot_flops_per_device"], rel=0.02)
+        assert own > 2 * p["flops_per_device"]
+    elif "moe" not in ov and "decode" not in cell:
+        # split heads / width: no rank repeats another's scan or products
+        assert own <= 1.03 * p["flops_per_device"]
+    # the split cores hold their share: a train or prefill step's temp
+    # bytes within 3x the reference's (mamba2 prefill_32k held 6.9x with
+    # every head whole; a decode step's are a few MB either way)
+    if "decode" not in cell:
+        assert (p["memory_analysis"]["temp_size_in_bytes"]
+                <= 3 * r["memory_analysis"]["temp_size_in_bytes"])
 
 
 def _ops(rec, kind, shape=None):
@@ -261,15 +418,25 @@ def _check_collectives(cell, r, p):
         # the port: a layer's attention and MLP outputs in the forward,
         # the attention's again in remat's recompute, the two column-
         # parallel inputs' gradients in the backward; the logits' input
-        # gradient once. The reference: the same plus, a layer, the MLP
+        # gradient and the vocab-split embedding lookup's sum over "model"
+        # once each. The reference: the same plus, a layer, the MLP
         # output again in the recompute (torch.utils.checkpoint stops
         # recomputing once the backward's saved tensors are back, before
-        # that all-reduce), and its vocab-split embedding lookup summed
-        # over "model" (the port gathers the table's rows instead)
-        assert n == 5 * L + 1 == n_ref - L - 1, (n, n_ref)
+        # that all-reduce)
+        assert n == 5 * L + 2 == n_ref - L, (n, n_ref)
         assert b == n * float(np.prod(act)) * 2
-        # nothing else of note: the norms' squares, the loss, the grad norm
-        assert pc["collective_operand_bytes"]["all-reduce"] - b < 1e-3 * b
+        # the vocab-split loss: each row's max, then its sum of exp and
+        # gold logit stacked, over "model" (f32 [128, 4095]: the labels
+        # drop the last position), once each
+        rows = [256 // 2, 4096 - 1]
+        assert _ops(p, "all-reduce", rows)[0] == 1
+        assert _ops(p, "all-reduce", [2] + rows)[0] == 1
+        ce = _ops(p, "all-reduce", rows)[1] + _ops(p, "all-reduce",
+                                                   [2] + rows)[1]
+        assert ce == 3 * 4 * float(np.prod(rows))
+        # nothing else of note: the norms' squares, the grad norm
+        assert (pc["collective_operand_bytes"]["all-reduce"] - b - ce
+                < 1e-3 * b)
         # the reference also sums its chunked attention's products over
         # "model" (2 kv heads on a 4-wide axis); the port cuts the q heads
         # to each rank's kv head (kv_head_slice) and sums none
@@ -296,9 +463,10 @@ def _check_collectives(cell, r, p):
         assert _ops(p, "all-gather", [1, B, H])[0] == L
         assert _ops(r, "all-reduce", [B, 1, H, hd])[0] >= L
         # the port's all-reduces are the [64, 1, 128] residual's partial
-        # sums over "model", resolved at each norm that reads them
+        # sums over "model", resolved at each norm that reads them, and
+        # the vocab-split embedding lookup's sum
         n, b = _ops(p, "all-reduce", [B, 1, SMOKE["d_model"]])
-        assert n == pc["collective_counts"]["all-reduce"] == 2 * L
+        assert n == pc["collective_counts"]["all-reduce"] == 2 * L + 1
     # kinds: the reference's collective-permutes (XLA's re-layout of small
     # weights) and, in decode, its all-to-all have no counterpart on a
     # "cpu" mesh, where DTensor stands all-gathers for such moves
@@ -324,6 +492,16 @@ def test_stand_in_runs_are_not_counted(records):
     assert probe["bytes"] == (8 * 32 + 32 * 16 + 8 * 16) * 4
 
 
+def test_a_strided_shard_traces_on_fake_tensors(records):
+    """A split dim flattened into another (a strided shard) prices and
+    redistributes under the counting modes on fake tensors: DTensor reads
+    its offsets with .tolist(), which the modes let run on a real index
+    tensor (the fault of recurrentgemma-9b's multi-pod train_4k, which
+    shows only at the production shape)."""
+    shape, flops = records.port["probe"]["strided"]
+    assert shape == [48, 32] and flops == 2 * 48 * 16 * 64 * 32
+
+
 def test_report_reads_the_port_records(records, tmp_path):
     from repro_torch.analysis.report import summarize
     for key, rec in records.port.items():
@@ -333,7 +511,8 @@ def test_report_reads_the_port_records(records, tmp_path):
         d.mkdir(parents=True, exist_ok=True)
         (d / f"{rec['shape']}.json").write_text(json.dumps(rec))
     s = summarize(tmp_path)
-    assert len(s["single"]) == 2 and len(s["multi"]) == 1
+    assert len(s["single"]) == len(CELLS) + len(FAMILY_CELLS)
+    assert len(s["multi"]) == 1
     assert all(r["dominant"] in ("compute", "memory", "collective")
                for r in s["single"] + s["multi"])
 

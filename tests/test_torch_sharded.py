@@ -27,7 +27,16 @@ sharded train step, expert-parallel MoE and ``launch/train.py --mesh``.
   the ``--mesh none`` run's within 1e-4. One step of every other family's
   smoke model (gemma-2b with its heads replicated, olmoe with EP inside
   the LM, mamba2, recurrentgemma, whisper) on the mesh equals its step
-  off the mesh at 1e-5.
+  off the mesh at 1e-5. gemma-2b (2 q heads whole over a 4-wide
+  ``"model"`` axis, (1, 4)), mamba2 (SSD heads split) and recurrentgemma
+  (RG-LRU width split) each take one step from the reference's params,
+  held to the reference's ``jax.jit(step)`` at its test's bounds, and each
+  rank's SSD / scan / attention input is its share.
+- The vocab-split cross entropy (logits split over ``"model"`` on their
+  vocab, padding slots at -1e9) and embedding lookup (table split over
+  its vocab and FSDP dim) on the (2, 2) mesh against the plain ones:
+  loss 1e-6, gradients 1e-5; a dispatch mode on each rank sees no local
+  op make a tensor with the whole padded vocab.
 """
 from types import SimpleNamespace
 
@@ -65,6 +74,10 @@ from repro_torch.training import abstract_state, state_axes  # noqa: E402
 
 GROUP_TIMEOUT_S = 120.0
 LOSS_TOL, PARAM_TOL = 1e-4, 5e-3        # the reference test's bounds
+# a first AdamW step in warm-up moves each param by about lr / 100 = 1e-5,
+# whatever its gradient's size: the gradients themselves are held, each
+# leaf within FAMILY_GRAD_RTOL of its largest reference value
+FAMILY_GRAD_RTOL = 1e-4
 SELF_TOL = 1e-5                         # against the port's unsharded step
 Y_TOL, AUX_TOL, GRAD_TOL = 1e-4, 1e-5, 1e-5
 ARCH = "granite-3-8b"
@@ -214,6 +227,28 @@ def test_kv_head_slice_refuses_uneven_splits():
 
 # -- the 4-rank world --------------------------------------------------------
 
+# the vocab-split loss and lookup: V 96 slots, the last 6 padding (masked
+# to -1e9 as logits_from_hidden masks them), 4 rows of 6 positions, d 20
+VOCAB, PADDED, CE_TOL, CE_GRAD_TOL = 90, 96, 1e-6, 1e-5
+# the repaired families' sharded steps against the reference's: gemma with
+# fewer q heads (2) than the "model" axis (4), kept whole over it; mamba2
+# (16 SSD heads) and recurrentgemma (RG-LRU width 128) split over (2, 2)
+FAMILY_STEPS = {"gemma-2b": ({"num_heads": 2}, (1, 4)),
+                "mamba2-370m": ({}, (2, 2)),
+                "recurrentgemma-9b": ({}, (2, 2))}
+
+
+def _vocab_inputs():
+    rng = np.random.default_rng(21)
+    logits = rng.standard_normal((4, 6, PADDED)).astype(np.float32) * 3
+    logits[..., VOCAB:] = -1e9
+    labels = rng.integers(0, VOCAB, (4, 6))
+    mask = (rng.random((4, 6)) > 0.3).astype(np.float32)
+    table = rng.standard_normal((PADDED, 20)).astype(np.float32)
+    tokens = rng.integers(0, VOCAB, (4, 6))
+    ct = rng.standard_normal((4, 6, 20)).astype(np.float32)
+    return logits, labels, mask, table, tokens, ct
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     root = tmp_path_factory.mktemp("sharded")
@@ -236,12 +271,26 @@ def world(tmp_path_factory):
 
     gx, gp = jax.grad(dense_loss, argnums=(0, 1))(x, mp)
 
+    fam_cases, fam_ref = {}, {}
+    for arch, (ov, shape) in FAMILY_STEPS.items():
+        fcfg = jsmoke(arch).replace(**ov)
+        fm = jbuild(fcfg, attn_impl="naive")
+        fp = fm.init(jax.random.PRNGKey(11))
+        fbatch = jmake_batch(fcfg, JShape("s", 64, 4, "train"))
+        fstep = jmake_train_step(fm, JOptCfg(learning_rate=1e-3))
+        fp1, _, fout = jax.jit(fstep)(fp, jinit_state(fp), fbatch)
+        fgrads = jax.jit(jax.grad(lambda p, b: fm.loss(p, b)[0]))(fp, fbatch)
+        fam_cases[arch] = (ov, shape, jax.tree.map(np.asarray, fp),
+                           np.asarray(fbatch["tokens"]))
+        fam_ref[arch] = (float(fout["loss"]), jax.tree.map(np.asarray, fp1),
+                         jax.tree.map(np.asarray, fgrads))
+
     ranks = W.run_group(
         W.sharded_lm, 4, root / "group", ARCH, 2,
         jax.tree.map(np.asarray, jparams), np.asarray(jbatch["tokens"]),
         jax.tree.map(np.asarray, mp), np.asarray(x), ct,
-        LAUNCHER_ARGV + ["--ckpt-dir", str(root / "mesh")],
-        timeout=GROUP_TIMEOUT_S)
+        LAUNCHER_ARGV + ["--ckpt-dir", str(root / "mesh")], _vocab_inputs(),
+        fam_cases, timeout=GROUP_TIMEOUT_S)
     off = train_launcher.train(train_launcher.parse_args(
         LAUNCHER_ARGV + ["--ckpt-dir", str(root / "none")]))
     return SimpleNamespace(
@@ -249,7 +298,7 @@ def world(tmp_path_factory):
         ref_params=jax.tree.map(np.asarray, jp1), yd=np.asarray(yd),
         auxd=float(auxd),
         dgrads=[np.asarray(gx)] + [np.asarray(gp[k]) for k in sorted(gp)],
-        off_losses=off.losses)
+        off_losses=off.losses, fam_ref=fam_ref)
 
 
 @pytest.mark.parametrize("route", ["plain", "kernels", "remat"])
@@ -315,3 +364,73 @@ def test_every_family_trains_on_the_mesh(world, arch):
     r = world.out["families"][arch]
     assert abs(r["loss"] - r["off_loss"]) < SELF_TOL, arch
     assert r["gap"] < SELF_TOL, arch
+
+
+@pytest.mark.parametrize("case", ["ce", "ce_masked"])
+def test_vocab_split_cross_entropy_matches_plain(world, case):
+    """Each rank reduces its own vocab slice (max, then sum of exp and the
+    gold logit, each over "model"); the loss and the logits' gradient are
+    the plain cross entropy's, and no op on a rank makes a tensor with the
+    whole padded vocab."""
+    from repro_torch.models.layers import cross_entropy
+    logits, labels, mask, *_ = _vocab_inputs()
+    lg = torch.from_numpy(logits).requires_grad_()
+    loss = cross_entropy(lg, torch.from_numpy(labels),
+                         torch.from_numpy(mask) if case == "ce_masked"
+                         else None)
+    g, = torch.autograd.grad(loss, [lg])
+    for r in world.ranks:
+        got = r["vocab"][case]
+        assert abs(got["loss"] - float(loss.detach())) < CE_TOL
+        assert _max_err(got["grad"], g.numpy()) < CE_GRAD_TOL
+        assert got["shapes"] and all(PADDED not in shp
+                                     for shp in got["shapes"])
+        assert (4 // 2, 6, PADDED // 2) in got["shapes"]
+
+
+def test_vocab_split_lookup_matches_plain(world):
+    """Each rank reads its vocab slice's rows (others zero) and the pieces
+    sum over "model"; the table's gradient stays in its placements."""
+    *_, table, tokens, ct = _vocab_inputs()
+    tab = torch.from_numpy(table).requires_grad_()
+    x = tab[torch.from_numpy(tokens)]
+    g, = torch.autograd.grad((x * torch.from_numpy(ct)).sum(), [tab])
+    for r in world.ranks:
+        got = r["vocab"]["lookup"]
+        assert _max_err(got["x"], x.detach().numpy()) < CE_TOL
+        assert _max_err(got["grad"], g.numpy()) < CE_GRAD_TOL
+        assert got["grad_placements"] == (Shard(1), Shard(0))
+        assert all(PADDED not in shp for shp in got["shapes"])
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_STEPS))
+def test_family_sharded_step_matches_reference_single_device(world, arch):
+    """gemma's replicated heads, mamba2's split SSD heads and
+    recurrentgemma's split RG-LRU width: one sharded step equals the
+    reference's jax.jit step at the reference test's bounds, every
+    gradient it updates with is the reference's jax.grad leaf by leaf
+    (the backward through the split cores, the gathers' reduce-scatters
+    and the gated norm's all-reduce), and each rank's core took its
+    share."""
+    loss, params, grads = world.fam_ref[arch]
+    r = world.out["family_steps"][arch]
+    assert abs(r["loss"] - loss) < LOSS_TOL
+    md = max(_max_err(b, a) for _, a, b in _pairs(params, r["params"]))
+    assert md < PARAM_TOL, (arch, md)
+    for path, a, b in _pairs(grads, r["grads"]):
+        scale = float(np.abs(a).max())
+        assert scale > 0, (arch, path)
+        assert _max_err(b, a) <= FAMILY_GRAD_RTOL * scale, (
+            arch, path, _max_err(b, a), scale)
+    seen = r["inputs"]
+    if arch == "gemma-2b":
+        # (1, 4): the 2 heads whole on each rank, as the reference's
+        # compiled step keeps them (every model rank attends all rows)
+        assert set(seen["attend"]) == {(4, 64, 2, 32)}
+    elif arch == "mamba2-370m":
+        # 16 SSD heads of 16 channels, 8 a rank; 2 rows a data shard
+        assert seen["ssd"] and set(seen["ssd"]) == {(2, 64, 8, 16)}
+    else:
+        # the RG-LRU width 128, 64 a rank; 4 q heads, 2 a rank
+        assert seen["scan"] and set(seen["scan"]) == {(2, 64, 64)}
+        assert set(seen["attend"]) == {(2, 64, 2, 32)}

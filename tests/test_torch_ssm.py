@@ -89,6 +89,43 @@ def test_ssd_chunked_masks_the_overflow_above_the_diagonal():
     assert _err(y.numpy(), y_ref) < SSD_TOL
 
 
+def test_ssd_chunked_gradient_is_finite_where_the_decay_overflows():
+    """The same overflow in the backward: the reference's ``jax.grad`` of
+    its SSD is nan for dt there (a full-width chunk of 256 reaches it:
+    dt 0.1, A -16); the port masks before the exp, so its gradient is
+    finite and equals the step-by-step recurrence's (float64 autograd)."""
+    x, dt, A, B, C = _ssd_inputs(S=32, seed=1)
+    dt = dt * 400.0
+    jg = jax.grad(lambda d: jnp.sum(jmamba.ssd_chunked(
+        jnp.asarray(x), d, jnp.asarray(A), jnp.asarray(B), jnp.asarray(C),
+        32)[0]))(jnp.asarray(dt))
+    assert bool(jnp.isnan(jg).any())
+    d = _t(dt).requires_grad_()
+    y, _ = mamba2.ssd_chunked(_t(x), d, *map(_t, (A, B, C)), 32)
+    g, = torch.autograd.grad(y.sum(), [d])
+    assert bool(torch.isfinite(g).all())
+
+    def recurrence(d):
+        Bf, Cf = (torch.from_numpy(np.repeat(np.asarray(a, np.float64),
+                                             A.shape[0] // B.shape[2],
+                                             axis=2)) for a in (B, C))
+        xf, Af = (torch.from_numpy(np.asarray(a, np.float64)) for a in (x, A))
+        h, ys = torch.zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[3],
+                            dtype=torch.float64), []
+        for t in range(x.shape[1]):
+            decay = torch.exp(d[:, t] * Af[None, :])
+            upd = torch.einsum("bhn,bhp->bhpn", Bf[:, t],
+                               xf[:, t] * d[:, t][..., None])
+            h = h * decay[..., None, None] + upd
+            ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], h))
+        return torch.stack(ys, 1).sum()
+
+    d64 = torch.from_numpy(dt.astype(np.float64)).requires_grad_()
+    want, = torch.autograd.grad(recurrence(d64), [d64])
+    assert _err(g.numpy(), want.numpy()) < SSD_TOL * float(
+        want.abs().max())
+
+
 def _block(arch, specs_fn, seed):
     jcfg, cfg = jsmoke(arch), smoke_config(arch)
     jp = jinit(specs_fn(jcfg), jax.random.PRNGKey(seed), "float32")
@@ -106,6 +143,22 @@ def test_mamba_apply_matches_reference(S):
     assert _err(got.numpy(), want) < BLOCK_TOL
     assert _err(conv.numpy(), wconv) < BLOCK_TOL
     assert _err(h.numpy(), wh) < BLOCK_TOL
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_prefill_states_hold_only_their_own_bytes(arch):
+    """The conv window [B,K-1,C] and the last state a full-sequence pass
+    returns are copies: a view of the [B,S,C] conv input (or of the
+    RG-LRU's [B,S,W] scan) would keep it alive with each layer's cache
+    (mamba2-370m prefill_32k: 16.66 GB of temps a rank, 2.47 without)."""
+    mod, specs = ((mamba2, jmamba.mamba_specs) if arch.startswith("mamba")
+                  else (rglru, jrglru.rglru_specs))
+    _, cfg, _, p = _block(arch, specs, 0)
+    x = np.random.default_rng(3).standard_normal((2, 64, cfg.d_model))
+    apply = mod.mamba_apply if mod is mamba2 else mod.rglru_apply
+    _, state = apply(cfg, p, _t(x * 0.5), return_state=True)
+    for t in state:
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
 
 
 def test_mamba_decode_steps_match_reference_and_the_full_pass():
