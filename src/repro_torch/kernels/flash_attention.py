@@ -25,16 +25,17 @@ PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`),
 CUDA tensors launch the kernel on the current stream or raise. There is no
 fallback between the two. ``flash_attention.launch_count`` counts launches.
 
-Gradients: where autograd records and q, k or v requires grad, a CUDA call
+Gradients: where autograd records and q, k or v requires grad, a call
 goes through :class:`FlashAttentionFunction`, whose forward is the kernel
-and whose backward differentiates the plain version (the reference's
-kernel has no backward; it trains over plain jnp). The plain version
-holds [B, Hq, rows, Sk] float32 scores, so the backward recomputes it in
-chunks of query rows (:func:`_backward_rows`: about ``BACKWARD_SCORES``
-scores a chunk, 1 GiB in float32), each chunk against the keys its rows
-can reach (up to its last row when causal), summing the chunks' k and v
-gradients. A CPU call is the plain version itself, which autograd
-differentiates.
+(the plain version on CPU tensors) and whose backward differentiates the
+plain version (the reference's kernel has no backward; it trains over
+plain jnp). The plain version holds [B, Hq, rows, Sk] float32 scores, so
+the backward recomputes it in chunks of query rows
+(:func:`_backward_rows`: about ``BACKWARD_SCORES`` scores a chunk, 1 GiB
+in float32), each chunk against the keys its rows can reach (up to its
+last row when causal), summing the chunks' k and v gradients. The whole
+backward is the span ``flash_attention.backward``
+(:mod:`repro_torch.tracing`), on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.tracing import span
 
 MAX_HEAD_DIM = 256
 _GRID_MAX = 65535
@@ -98,10 +100,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kpos > qpos - window`` if ``window``; scale ``D ** -0.5``.
     Differentiable (see the module docstring)."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
     if _build.records_grad(q, k, v):
         return FlashAttentionFunction.apply(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     return _launch(q, k, v, causal, window)
 
 
@@ -116,8 +118,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     """The kernel forward with a plain backward. q, k and v are saved as
     they come (the model's strided ``transpose(1, 2)`` views, no copy);
     ``backward`` recomputes :func:`flash_attention_ref` chunk by chunk of
-    query rows and differentiates it. On CPU tensors the forward is the
-    plain version too (what the CPU tests drive)."""
+    query rows and differentiates it, inside the span
+    ``flash_attention.backward``. On CPU tensors the forward is the plain
+    version too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -129,6 +132,11 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        with span("flash_attention.backward"):
+            return FlashAttentionFunction._backward(ctx, do)
+
+    @staticmethod
+    def _backward(ctx, do):
         q, k, v = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         B, Hq, Sq, _ = q.shape

@@ -15,9 +15,23 @@ redistributed to its param's placements (a reduce-scatter) before the
 norm, the clip and the update: what the reference's ``out_shardings``
 does. A micro-batch of a DTensor batch takes the reference's global rows
 and is split over the data axes as the batch is.
+
+The train step's phases are spans (:mod:`repro_torch.tracing`), which
+cost a flag read unless a ``torch.profiler`` is recording:
+``train.forward`` (the tracked leaves and ``model.loss``) and
+``train.backward`` (``torch.autograd.grad``, so the remat recompute and
+every backward, the missing-grad check and the redistribute) of each
+micro-batch, ``train.accumulate`` (its share of the float32 gradient sum,
+with the final divide in the last one) and ``train.update``
+(:func:`apply_updates`: global norm, clip, AdamW). To see them, profile a
+step (``with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
+step(...)``), then ``prof.export_chrome_trace(path)``: the phases are the
+``repro_torch/train.*`` ops on the host timeline, above the kernels they
+launched; ``repro_torch.tracing.spans()`` gives each with its device time.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -26,6 +40,7 @@ from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.distributed.sharding import (current_mesh, current_rules,
                                               lshard, to_placements)
+from repro_torch.tracing import span
 
 from repro_torch.training.optimizer import (AdamWState, OptimizerConfig,
                                             apply_updates, tree_leaves,
@@ -40,22 +55,26 @@ def _paths(tree, prefix: str = "") -> List[str]:
     return [prefix.rstrip("/")]
 
 
-def _loss_and_grads(model, params, batch
+def _loss_and_grads(model, params, batch, step: int = 0, micro: int = 0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
     """(loss, metrics), both detached, and the grads of the params' leaves
     in ``tree_leaves`` order. Raises ``RuntimeError`` naming every leaf
-    that got no gradient."""
-    tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    leaves = tree_leaves(tracked)
-    loss, metrics = model.loss(tracked, batch)
-    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-    missing = [path for path, g in zip(_paths(params), grads) if g is None]
-    if missing:
-        raise RuntimeError(f"no gradient reached {len(missing)} params "
-                           f"({', '.join(missing[:8])}): they are cut off "
-                           "from the loss")
-    grads = [g.redistribute(p.device_mesh, p.placements)
-             if isinstance(p, DTensor) else g for p, g in zip(leaves, grads)]
+    that got no gradient. ``step`` and ``micro`` label its spans."""
+    with span("train.forward", step, micro):
+        tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tree_leaves(tracked)
+        loss, metrics = model.loss(tracked, batch)
+    with span("train.backward", step, micro):
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        missing = [path for path, g in zip(_paths(params), grads)
+                   if g is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {len(missing)} params "
+                               f"({', '.join(missing[:8])}): they are cut "
+                               "off from the loss")
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(p, DTensor) else g
+                 for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
@@ -93,29 +112,35 @@ def make_train_step(model, opt_cfg: OptimizerConfig,
     state, {"loss", model metrics, "grad_norm", "lr"})``. With
     ``accum_steps > 1`` the batch is split into micro-batches run one after
     another (gradient accumulation): their float32 grads are summed and
-    divided, the loss is their mean, the metrics are the last one's."""
+    divided, the loss is their mean, the metrics are the last one's.
+    Its spans count steps by the function's own calls."""
+    calls = itertools.count()
 
     def train_step(params, opt_state: AdamWState, batch):
+        n = next(calls)
         if accum_steps <= 1:
-            loss, metrics, grads = _loss_and_grads(model, params, batch)
+            loss, metrics, grads = _loss_and_grads(model, params, batch, n)
         else:
             gsum = lsum = None
-            for mb in _micro_batches(batch, accum_steps):
-                loss, metrics, g = _loss_and_grads(model, params, mb)
-                if gsum is None:        # 0 + g: the first sum is g itself
-                    gsum = [x.to(torch.float32) for x in g]
-                    lsum = loss.to(torch.float32)
-                else:
-                    for a, b in zip(gsum, g):
-                        a.add_(b.to(torch.float32))
-                    lsum = lsum + loss
-                del g
-            grads = [a.div_(accum_steps) for a in gsum]
-            loss = lsum / accum_steps
-        it = iter(grads)
-        grad_tree = tree_map(lambda p: next(it), params)
-        new_params, new_state, om = apply_updates(opt_cfg, params, grad_tree,
-                                                  opt_state)
+            for i, mb in enumerate(_micro_batches(batch, accum_steps)):
+                loss, metrics, g = _loss_and_grads(model, params, mb, n, i)
+                with span("train.accumulate", n, i):
+                    if gsum is None:    # 0 + g: the first sum is g itself
+                        gsum = [x.to(torch.float32) for x in g]
+                        lsum = loss.to(torch.float32)
+                    else:
+                        for a, b in zip(gsum, g):
+                            a.add_(b.to(torch.float32))
+                        lsum = lsum + loss
+                    del g
+                    if i == accum_steps - 1:
+                        grads = [a.div_(accum_steps) for a in gsum]
+                        loss = lsum / accum_steps
+        with span("train.update", n):
+            it = iter(grads)
+            grad_tree = tree_map(lambda p: next(it), params)
+            new_params, new_state, om = apply_updates(opt_cfg, params,
+                                                      grad_tree, opt_state)
         return new_params, new_state, {"loss": loss, **metrics, **om}
 
     return train_step
