@@ -108,6 +108,11 @@ Phases, each raising on failure (the script then exits non-zero):
    the host. ``device_ms`` traces after a thrown-away warm-up step and
    holds each kernel's event count to a whole multiple of the calls
    (once more, then it raises), so a trace that lost events is not read.
+   Then the bf16 flash backward kernel at danube-train's, whisper's
+   encoder, olmoe's and gemma-2b's training shapes
+   (``flash_backward_timings``), held to its plain twin fed the kernel's
+   own o and lse, beside the plain chunked backward and autograd through
+   SDPA;
 9. (run before 8) whisper-medium (arXiv:2212.04356) at full width and
    depth, nothing cut (24 + 24 layers, d 1024, 16 heads of 64, random
    weights from ``--seed``): a float32 copy, B 2 x 1500 frames, a 440-token
@@ -130,7 +135,8 @@ Phases, each raising on failure (the script then exits non-zero):
    4 steps of 8 x 4096 tokens in micro-batches of 2): finite losses and
    grad norms, params moved, no ``failure`` or ``restart`` event (the
    controller retries a failing step), launches a micro-batch those of a
-   forward and its remat recompute (48 flash_attention, 97 rmsnorm);
+   forward and its remat recompute (48 flash_attention, 97 rmsnorm) and
+   24 launches of flash's backward kernel (none in the float32 checks);
    step seconds, tokens/s, the model FLOPs share (6 N tokens over the
    step and 989 TFLOP/s) and peak memory;
 11. the sharded LM, on the (1, 1) ``("data", "model")`` device mesh of a
@@ -144,9 +150,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (b)
    olmoe-1b-7b's MoE block at full width (64 experts, top 8, d 2048),
    float32, x (2, 512, 2048) x 0.5: ``moe_apply(mesh=...)`` (the
-   expert-parallel branch) against ``moe_dense``, y within 1e-4 and aux
-   within 1e-5, and its gradient against the single-device call's within
-   1e-4 of each leaf's max; (c) the launcher with ``--mesh host`` at phase
+   expert-parallel branch) against the single-device call, y within 1e-4
+   and its gradient within 1e-4 of each leaf's max, and aux within 1e-5 of
+   ``moe_dense``'s; (c) the launcher with ``--mesh host`` at phase
    10's cell (bf16, 8 x 4096, accum 4) for 3 steps, in a 1-rank world it
    starts itself: launches those of phase 10, step seconds (median of
    steps 2-3), tokens/s and peak memory beside phase 10's; (d) (a) for
@@ -254,9 +260,9 @@ TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--batch", "8", "--seq",
 # float32, SHARD_BATCH: one train step on the mesh against the same step
 # off it, at the reference test's bounds (tests/test_distributed.py);
 # (b) olmoe-1b-7b's MoE block at full width, float32, x EP_X * 0.5:
-# moe_apply on the mesh (the EP branch) against moe_dense, y EP_Y_TOL and
-# aux EP_AUX_TOL, and its gradient against the single-device call's within
-# EP_GRAD_RTOL of the largest; (c) the launcher with --mesh host at phase
+# moe_apply on the mesh (the EP branch) against the single-device call, y
+# EP_Y_TOL and its gradient within EP_GRAD_RTOL of the largest, and aux
+# within EP_AUX_TOL of moe_dense's; (c) the launcher with --mesh host at phase
 # 10's cell, SHARD_TRAIN_STEPS steps
 SHARD_LAYERS, SHARD_BATCH = 2, (2, 1024)
 # (d) the same check for the families whose cores split over "model" (or,
@@ -309,7 +315,8 @@ DRY_FLOPS_RTOL = 0.05           # the port's count against the reference's
 DRY_USEFUL_MAX = 1.5
 ALLOC_ROUND = 512               # the caching allocator's rounding a tensor
 FLASH_DESIGN = ("bf16: mma.sync m16n8k16 + cp.async, P as bf16 hi/lo; "
-                "f32: FMA")
+                "f32: FMA; bf16 backward: FlashAttention-2 over k tiles from "
+                "the forward's lse, P and dS as bf16 hi/lo, dQ by f32 atomics")
 DECODE_DESIGN = ("split-KV + combine; bf16: mma.sync over the GQA group, "
                  "a 16-byte cp.async ring per warp; f32: FMA")
 RMSNORM_DESIGN = ("register path: a row held in registers by 1-16 warps, "
@@ -1233,11 +1240,19 @@ def _zero_counts():
     torch.cuda.synchronize()
     for fn in _lm_kernels().values():
         fn.launch_count = 0
+    _lm_kernels()["flash_attention"].backward_launch_count = 0
 
 
-def _read_counts():
+def _read_counts(backward: bool = False):
+    """Launches of each LM kernel since ``_zero_counts``; with ``backward``
+    also flash's backward kernel's, as ``flash_attention_backward``."""
     torch.cuda.synchronize()
-    return {n: fn.launch_count for n, fn in _lm_kernels().items()}
+    kernels = _lm_kernels()
+    counts = {n: fn.launch_count for n, fn in kernels.items()}
+    if backward:
+        counts["flash_attention_backward"] = (
+            kernels["flash_attention"].backward_launch_count)
+    return counts
 
 
 def lm_launches(cfg):
@@ -1811,7 +1826,8 @@ def grad_check(cfg, params, batch, label: str, launches: dict):
                                     allow_unused=True)
         torch.cuda.synchronize()
         out[route] = (float(loss.detach()), grads,
-                      time.perf_counter() - t0, _read_counts() if use else None)
+                      time.perf_counter() - t0,
+                      _read_counts(backward=True) if use else None)
         del tracked, loss
     lk, gk, k_s, counts = out["kernel"]
     lp, gp, p_s, _ = out["plain"]
@@ -1851,11 +1867,20 @@ def train_launches(cfg, micro_batches: int) -> dict:
     """Launches of a training forward under full remat, per micro-batch
     times ``micro_batches``: each layer's flash and norms run in the forward
     and again in its recompute; the final norm runs once (outside remat);
-    the backwards are plain."""
+    the norms' backwards are plain."""
     n_attn, norms = lm_launches(cfg)
     return {"flash_attention": 2 * n_attn * micro_batches,
             "decode_attention": 0,
             "rmsnorm": (2 * (norms - 1) + 1) * micro_batches}
+
+
+def train_backward_launches(cfg, micro_batches: int, dtype) -> dict:
+    """``train_launches`` with flash's backward kernel: one launch a layer a
+    micro-batch in bfloat16; float32 takes the plain backward, none."""
+    n_attn, _ = lm_launches(cfg)
+    return {**train_launches(cfg, micro_batches),
+            "flash_attention_backward":
+                n_attn * micro_batches * (dtype == torch.bfloat16)}
 
 
 def training_path(args, dev):
@@ -1877,7 +1902,8 @@ def training_path(args, dev):
         rng.integers(0, cfg.vocab_size, (B, S))).to(dev)}
     res["grad_lm"] = grad_check(cfg32, params, batch,
                                 f"{LM_ARCH} f32 B={B} S={S}",
-                                train_launches(cfg, 1))
+                                train_backward_launches(cfg, 1,
+                                                        torch.float32))
     del params, batch
     torch.cuda.empty_cache()
 
@@ -1891,7 +1917,8 @@ def training_path(args, dev):
     res["grad_whisper"] = grad_check(
         wcfg32, params, batch, f"{WHISPER} f32 B={B} frames={frames} "
         f"tokens={ctx}", {"flash_attention": 2 * n_flash,
-                          "decode_attention": 0, "rmsnorm": 0})
+                          "decode_attention": 0, "rmsnorm": 0,
+                          "flash_attention_backward": 0})
     del params, batch
     torch.cuda.empty_cache()
 
@@ -1904,7 +1931,8 @@ def train_bf16(dev):
     """bf16 h2o-danube-1.8b through the training launcher's loop for
     TRAIN_ARGV (a temporary --ckpt-dir added): finite losses and grad
     norms, params moved, no failure or restart event, launches those of a
-    forward and its remat recompute a micro-batch; timed."""
+    forward and its remat recompute and of flash's backward a micro-batch;
+    timed."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -1918,7 +1946,7 @@ def train_bf16(dev):
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         run = train_launcher.train(targs)
-        counts = _read_counts()
+        counts = _read_counts(backward=True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     kinds = [k for k, _ in run.events]
     check("failure" not in kinds and "restart" not in kinds,
@@ -1927,7 +1955,8 @@ def train_bf16(dev):
           f"trained {run.step} steps, {len(run.losses)} losses")
     check(all(np.isfinite(run.losses)) and all(np.isfinite(run.grad_norms)),
           f"losses {run.losses}, grad norms {run.grad_norms}")
-    want = train_launches(cfg, targs.steps * targs.accum)
+    want = train_backward_launches(cfg, targs.steps * targs.accum,
+                                   torch.bfloat16)
     check(counts == want, f"training launches {counts} != {want}")
     init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     moved = max(float((a.float() - b.float()).abs().max())
@@ -2087,11 +2116,14 @@ def sharded_step_check(dev, mesh, seed: int, arch: str = LM_ARCH,
 
 def ep_check(dev, mesh, seed: int):
     """(b) olmoe-1b-7b's MoE block at full width, float32: ``moe_apply``
-    on the mesh (the expert-parallel branch) against ``moe_dense``, and
-    the gradient of ``sum(y * ct) + 3 aux`` against the single-device
-    call's. The router and x come from a CPU generator (the routing, and
-    so the capacity drops, are then the same on every machine: none at
-    these sizes), the expert weights from the card's."""
+    on the mesh (the expert-parallel branch) against the single-device
+    call, y and the gradient of ``sum(y * ct) + 3 aux``, and aux against
+    ``moe_dense``'s. The router and x come from a CPU generator (the
+    routing, and so the capacity drops, are then the same on every
+    machine), the expert weights from the card's. Some seeds drop tokens
+    at capacity (seed 8: y 0.082 from ``moe_dense``'s on one device too),
+    so y is held to the single-device call, which drops the same ones;
+    its gap to ``moe_dense`` is printed."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config
@@ -2120,8 +2152,8 @@ def ep_check(dev, mesh, seed: int):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, g1 = grads(x.detach().requires_grad_(),
-                     [p[k].detach().requires_grad_() for k in names])
+    y1, _, g1 = grads(x.detach().requires_grad_(),
+                      [p[k].detach().requires_grad_() for k in names])
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     PS = PartitionSpec
@@ -2138,7 +2170,8 @@ def ep_check(dev, mesh, seed: int):
                            [t.requires_grad_() for t in pd], mesh=mesh)
         torch.cuda.synchronize()
         ep_s = time.perf_counter() - t0
-    y_err = float((_whole(y).detach() - yd).abs().max())
+    y_err = float((_whole(y).detach() - y1.detach()).abs().max())
+    dense_gap = float((y1.detach() - yd).abs().max())
     aux_err = abs(float(_whole(aux)) - float(auxd))
     check(y_err < EP_Y_TOL and aux_err < EP_AUX_TOL,
           f"EP moe: y {y_err} (bound {EP_Y_TOL}), aux {aux_err} (bound "
@@ -2150,14 +2183,16 @@ def ep_check(dev, mesh, seed: int):
     check(max(rel.values()) < EP_GRAD_RTOL, f"EP moe grads: {rel} of max |g|"
           f" (bound {EP_GRAD_RTOL})")
     log(f"EP moe {EP_ARCH} f32 x {tuple(x.shape)} on a {tuple(mesh.shape)} "
-        f"mesh: max |y - moe_dense| {y_err:.3e} (bound {EP_Y_TOL}), |aux - "
+        f"mesh: max |y - y_single_device| {y_err:.3e} (bound {EP_Y_TOL}; "
+        f"the single-device call's gap to moe_dense {dense_gap:.3e}), |aux - "
         f"dense| {aux_err:.3e} (bound {EP_AUX_TOL}); grads against the "
         f"single-device call, max |diff| / max |g|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
         + f"; forward + backward {ep_s:.4f} s on the mesh, {one_s:.4f} s off")
-    del p, x, ct, yd, g1, ge, xd, pd, y
+    del p, x, ct, yd, y1, g1, ge, xd, pd, y
     torch.cuda.empty_cache()
-    return {"y_err": y_err, "aux_err": aux_err, "grad_rel": rel,
+    return {"y_err": y_err, "dense_gap": dense_gap, "aux_err": aux_err,
+            "grad_rel": rel,
             "mesh_s": ep_s, "off_s": one_s}
 
 
@@ -2179,7 +2214,7 @@ def sharded_train(dev):
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         run = train_launcher.train(targs)
-        counts = _read_counts()
+        counts = _read_counts(backward=True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     kinds = [k for k, _ in run.events]
     check("failure" not in kinds and "restart" not in kinds,
@@ -2187,7 +2222,8 @@ def sharded_train(dev):
     check(run.step == targs.steps and all(np.isfinite(run.losses))
           and all(np.isfinite(run.grad_norms)),
           f"sharded training: {run.step} steps, losses {run.losses}")
-    want = train_launches(cfg, targs.steps * targs.accum)
+    want = train_backward_launches(cfg, targs.steps * targs.accum,
+                                   torch.bfloat16)
     check(counts == want, f"sharded training launches {counts} != {want}")
     mesh_shape = tuple(run.params["final_norm"].device_mesh.shape)
     tokens = targs.batch * targs.seq
@@ -2757,6 +2793,120 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
     return res
 
 
+# the backward kernel's rows (PERF.md §6): (label, B, Hq, Hkv, Sq, Sk, D,
+# causal, window) of danube-train's call, whisper-medium's encoder,
+# olmoe-1b-7b's and gemma-2b's at their 4096-token training shapes
+FLASH_BWD_CELLS = (
+    ("danube_train", 2, 32, 8, 4096, 4096, 80, True, None),
+    ("whisper_encoder", 2, 16, 16, 1500, 1500, 64, False, None),
+    ("olmoe_train", 2, 16, 16, 4096, 4096, 128, True, None),
+    ("gemma_train", 2, 8, 1, 4096, 4096, 256, True, None))
+
+
+def flash_backward_timings(dev):
+    """The bf16 flash backward kernel (one launch: delta, the main kernel,
+    dq's conversion) at each ``FLASH_BWD_CELLS`` shape: held to its plain
+    twin (``ref.flash_attention_backward_ref``) fed the kernel's own o and
+    lse, one batch row at a time, within one bf16 ulp plus 1e-3 of the
+    largest gradient (the bound of the CUDA test against the twin); the gap
+    to the plain chunked backward, which differentiates its own float32
+    recompute, is printed. Then timed plain, kernel, kernel, plain, and
+    autograd through SDPA as the library yardstick (the port never calls
+    it). Bound: the five products, 10 D FLOPs a pair in the band, or the
+    bytes of q, k, v, o, dO, lse read and dq, dk, dv written once."""
+    import torch.nn.functional as F
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
+                                                     _launch,
+                                                     _launch_backward)
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(5)
+    res = {}
+    for label, B, Hq, Hkv, Sq, Sk, D, causal, window in FLASH_BWD_CELLS:
+        q, do = (torch.randn((B, Sq, Hq, D), generator=g).to(dev, bf)
+                 .transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, D), generator=g).to(dev, bf)
+                .transpose(1, 2) for _ in range(2))
+        o, lse = _launch(q, k, v, causal, window, with_lse=True)
+        ctx = SimpleNamespace(saved_tensors=(q, k, v),
+                              needs_input_grad=(True,) * 3, causal=causal,
+                              window=window)
+
+        def kernel():
+            return _launch_backward(q, k, v, o, lse, do, causal, window)
+
+        def plain():
+            return FlashAttentionFunction._plain(ctx, do)[:3]
+
+        got = kernel()
+        twin = [torch.cat(parts, 0) for parts in zip(*(
+            flash_attention_backward_ref(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], o[b:b + 1],
+                lse[b:b + 1, :, :Sq], do[b:b + 1], causal=causal,
+                window=window) for b in range(B)))]
+        errs, plain_errs = [], []
+        for name, a, t, p in zip("qkv", got, twin, plain()):
+            atol = 1e-3 * max(1.0, float(t.float().abs().max()))
+            err, beyond, ok = _close(a, t, bf, atol)
+            check(ok, f"flash backward {label} d{name}: err {err} against "
+                      f"the twin, beyond one ulp {beyond} > {atol}")
+            errs.append(err)
+            plain_errs.append(float((a.float() - p.float()).abs().max()))
+        del got, twin
+        pos = torch.arange(max(Sq, Sk), device=dev)
+        band = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            band &= pos[None, :Sk] <= pos[:Sq, None]
+        if window is not None:
+            band &= pos[None, :Sk] > pos[:Sq, None] - window
+        pairs = float(band.sum()) * B * Hq
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(
+            *leaves, is_causal=causal and window is None,
+            attn_mask=band if window is not None else None,
+            enable_gqa=Hq != Hkv)
+
+        def library():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        reps = 10
+        p1 = time_ms(plain, 2)
+        k1 = time_ms(kernel, reps)
+        k2 = time_ms(kernel, reps)
+        p2 = time_ms(plain, 2)
+        lib = time_ms(library, reps)
+        dev_ms, events = device_ms(kernel, reps)
+        lib_dev, _ = device_ms(library, reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kernel()
+            torch.cuda.synchronize()
+        parts = {n[:40]: us / reps / 1e3 for n, us in _kernel_us(prof).items()}
+        b_ms, by = _bound(2.0 * (4 * B * Hq * Sq * D + 4 * B * Hkv * Sk * D)
+                          + 4.0 * B * Hq * Sq, 10.0 * D * pairs,
+                          BF16_FLOPS_PER_S)
+        res[label] = {"shape": [B, Hq, Hkv, Sq, Sk, D, causal, window],
+                      "device_ms": dev_ms, "events_per_call": events,
+                      "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "library_ms": lib, "library_device_ms": lib_dev,
+                      "bound_ms": b_ms, "bound_by": by,
+                      "bound_share": b_ms / dev_ms, "max_err": errs,
+                      "max_err_plain": plain_errs, "kernels_ms": parts}
+        log(f"time flash backward {label} {res[label]['shape']}: device "
+            f"{dev_ms:.5f} ms ({events} events a call: {parts}), kernel "
+            f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, library "
+            f"{lib:.5f} ms (device {lib_dev:.5f}), bound {b_ms:.5f} ms ({by}), "
+            f"share {b_ms / dev_ms:.4f}; max err dq/dk/dv {errs} against the "
+            f"twin, {plain_errs} against the plain backward")
+        del q, k, v, do, o, lse, leaves, out, band
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2814,6 +2964,7 @@ def main() -> int:
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
+    fb = flash_backward_timings(dev)
 
     kernels = [{
         "name": "fused_embed", "route": "cuda",
@@ -2860,6 +3011,9 @@ def main() -> int:
                  at_8192=lt["flash_attention_long"],
                  at_d256=lt["flash_attention_d256"],
                  at_whisper_encoder=lt["flash_attention_whisper"],
+                 backward=fb,
+                 launches_backward_train_step=tr["train"][
+                     "launches_per_step"]["flash_attention_backward"],
                  launches_families=fam_launches("flash_attention"),
                  launches_whisper=wh["serve"]["launches"]["flash_attention"],
                  launches_train_step=tr["train"]["launches_per_step"][

@@ -8,9 +8,10 @@ It prints, as JSON on its last line: the harness's result; the spans of
 the traced step, counted by name and parent, with their device and host
 milliseconds; by span, the device events whose launching op has
 ``repro_torch/<span>`` among its parents in the profile (count, summed
-ms, ms of their union); and the names of any device events that carry a
-``repro_torch/`` name (there should be none: the spans are host ops
-only).
+ms, ms of their union, and the summed ms of the ten largest kernel names);
+the names of any device events that carry a ``repro_torch/`` name (there
+should be none: the spans are host ops only); and the backward kernel's
+launches in the traced step (``flash_attention.backward_launch_count``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import harness, trace  # noqa: E402
 from repro_torch import tracing  # noqa: E402
+from repro_torch.kernels import flash_attention  # noqa: E402
 
 
 def kernels_under_spans(prof) -> dict:
@@ -40,7 +42,8 @@ def kernels_under_spans(prof) -> dict:
     for k in prof.profiler.kineto_results.events():
         if k.device_type() == DeviceType.CUDA:
             dev[k.linked_correlation_id()].append((k.start_ns() / 1e3,
-                                                   k.end_ns() / 1e3))
+                                                   k.end_ns() / 1e3,
+                                                   k.name()))
     under = defaultdict(list)
     for e in prof.events():
         if not e.kernels:
@@ -50,11 +53,18 @@ def kernels_under_spans(prof) -> dict:
             if up.name.startswith(tracing.PREFIX):
                 under[up.name] += dev[e.id]
             up = up.cpu_parent
-    return {n: {"events": len(iv),
-                "sum_ms": sum(b - a for a, b in iv) / 1e3,
-                "union_ms": sum(b - a for a, b in
-                                trace.merged(iv, -1e30, 1e30)) / 1e3}
-            for n, iv in under.items()}
+    out = {}
+    for n, ev in under.items():
+        names = defaultdict(float)
+        for a, b, name in ev:
+            names[name[:80]] += (b - a) / 1e3
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+        out[n] = {"events": len(ev),
+                  "sum_ms": sum(b - a for a, b, _ in ev) / 1e3,
+                  "union_ms": sum(b - a for a, b in trace.merged(
+                      [(a, b) for a, b, _ in ev], -1e30, 1e30)) / 1e3,
+                  "kernels_ms": dict(top)}
+    return out
 
 
 def main() -> int:
@@ -67,7 +77,13 @@ def main() -> int:
     class Kept(trace.Profiled):
         def __enter__(self):
             kept.append(self)
+            self.launches = flash_attention.backward_launch_count
             return super().__enter__()
+
+        def __exit__(self, *exc):
+            self.launches = (flash_attention.backward_launch_count
+                             - self.launches)
+            return super().__exit__(*exc)
 
     harness.Profiled = Kept
     log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
@@ -86,7 +102,8 @@ def main() -> int:
                         and e.name.startswith(tracing.PREFIX)})
     print(json.dumps({"result": result, "spans": by,
                       "kernels_under_spans_ms": kernels_under_spans(prof),
-                      "span_names_on_device": on_device}), flush=True)
+                      "span_names_on_device": on_device,
+                      "backward_launches": kept[0].launches}), flush=True)
     return 0
 
 

@@ -127,17 +127,22 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
                            "with inputs that require no grad")
 
 
+def aligned(t: torch.Tensor) -> bool:
+    """True if a kernel that copies 16-byte chunks can read ``t``: its data
+    pointer and each stride but the last (of a dim longer than 1) a
+    multiple of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        st * size % 16 for st, n in zip(t.stride()[:-1], t.shape) if n > 1)
+
+
 def check_aligned(name: str, d: int, *tensors: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless a kernel that copies 16-byte chunks can
-    read every tensor: D a multiple of 8, each data pointer and each
-    stride but the last (of a dim longer than 1) a multiple of 16 bytes."""
+    """Raise ``ValueError`` unless D is a multiple of 8 and every tensor is
+    :func:`aligned`."""
     if d % 8:
         raise ValueError(f"{name}: head dim {d} is not a multiple of 8")
     for t in tensors:
-        size = t.element_size()
-        if t.data_ptr() % 16 or any(
-                st * size % 16 for st, n in zip(t.stride()[:-1], t.shape)
-                if n > 1):
+        if not aligned(t):
             raise ValueError(f"{name}: a {t.dtype} operand with strides "
                              f"{t.stride()} at offset {t.data_ptr() % 16} "
                              "is not 16-byte aligned")
@@ -186,19 +191,22 @@ class Query:
 class Kernel:
     """One C entry point ``symbol`` of ``csrc/<lib>.cu``. Its last
     parameter is the CUDA stream, and it returns ``cudaGetLastError()``.
-    The library is loaded at the first launch."""
+    The library is loaded at the first launch. ``counter`` names the
+    wrapper's attribute that counts its launches."""
 
-    def __init__(self, lib: str, symbol: str, argtypes: Sequence):
-        self.lib, self.symbol = lib, symbol
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence,
+                 counter: str = "launch_count"):
+        self.lib, self.symbol, self.counter = lib, symbol, counter
         self.argtypes = [*argtypes, ctypes.c_void_p]
         self._fn = None
 
     def launch(self, wrapper: Callable, device: torch.device, *args,
                what: Callable[[], str]) -> None:
         """Run the kernel on ``device``'s current stream; raise on a CUDA
-        error (``what()`` names the call), else add one to
-        ``wrapper.launch_count``. A launch is on the hot path of a decode
-        step, so the device is switched only when it is not current."""
+        error (``what()`` names the call), else add one to the wrapper's
+        counter (``wrapper.launch_count`` by default). A launch is on the
+        hot path of a decode step, so the device is switched only when it
+        is not current."""
         if self._fn is None:
             fn = getattr(load(self.lib), self.symbol)
             fn.argtypes = self.argtypes
@@ -213,10 +221,12 @@ class Kernel:
                 err = self._fn(*args,
                                torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
-            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
-                               f"CUDA error {err} at {what()}")
+            raise RuntimeError(f"{wrapper.__name__} kernel launch failed "
+                               f"({self.symbol}): CUDA error {err} at "
+                               f"{what()}")
         with _COUNT_LOCK:
-            wrapper.launch_count += 1
+            setattr(wrapper, self.counter,
+                    getattr(wrapper, self.counter) + 1)
 
 
 def build_all() -> Dict[str, float]:

@@ -44,7 +44,9 @@
 // to bf16 alone is off by up to 2^-9 relative, which breaks the one-ulp
 // parity where the weighted values nearly cancel. The epilogue divides by
 // the row sum and stores 16-byte chunks through the warp's own q rows in
-// shared memory.
+// shared memory. Given an lse buffer (the training forward, for
+// flash_attention_backward.cu) it also writes each row's log-sum-exp, m +
+// log2(l) in natural-log units; inference passes null and writes nothing.
 //
 // float32 (flash_fma_kernel) keeps the earlier FMA design: TF32 tensor
 // cores would break the 5e-5 f32 parity, and f32 serves only the
@@ -69,6 +71,7 @@ constexpr int BK = 64;
 constexpr int FMA_THREADS = 256;
 constexpr int MMA_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -261,8 +264,9 @@ template <int KS>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 Strides st, int hq, int hkv, int sq, int sk, int d,
-                 int causal, int window, float scale_log2) {
+                 float* __restrict__ lse, Strides st, int hq, int hkv, int sq,
+                 int sk, int d, int ldl, int causal, int window,
+                 float scale_log2) {
   constexpr int DP = 16 * KS;
   constexpr int LD = mma_ld(KS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -427,7 +431,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   attn::cp_async_wait<0>();
   __syncthreads();
 
-  // epilogue: o / l as bf16 into the warp's own q rows, then 16-byte stores
+  // epilogue: o / l as bf16 into the warp's own q rows, then 16-byte stores;
+  // with lse, each row's m + log2(l) in natural-log units (every row of the
+  // tile, those past sq too: the backward reads whole tiles)
   float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -435,6 +441,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t += __shfl_xor_sync(0xffffffffu, t, 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     inv[hr] = 1.f / fmaxf(t, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<long long>(b) * hq + h) * ldl + row_a + hr * 8] =
+          (m[hr] + log2f(t)) * LN2;
   }
   bf16* ow = qs + warp * 16 * LD;
 #pragma unroll
@@ -460,8 +469,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int KS>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               const Strides& st, int b, int hq, int hkv, int sq, int sk,
-               int d, int causal, int window, float scale,
+               float* lse, const Strides& st, int b, int hq, int hkv, int sq,
+               int sk, int d, int ldl, int causal, int window, float scale,
                cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes(KS);
   static attn::SmemLimit limit;
@@ -471,34 +480,39 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
   flash_mma_kernel<KS><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), st, hq, hkv, sq,
-      sk, d, causal, window, scale * LOG2E);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, st, hq, hkv,
+      sq, sk, d, ldl, causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define FLASH_ARGS \
   q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s
+#define MMA_ARGS \
+  q, k, v, o, lse, st, b, hq, hkv, sq, sk, d, ldl, causal, window, scale, s
 
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int b, int hq, int hkv, int sq, int sk, int d,
-           int causal, int window, float scale, int bf16_in, cudaStream_t s) {
+           int ldl, int causal, int window, float scale, int bf16_in,
+           cudaStream_t s) {
   const int groups = (d + 15) / 16;
   if (bf16_in) {
-    if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (d % 8 || (lse != nullptr && ldl < (sq + BQ - 1) / BQ * BQ))
+      return static_cast<int>(cudaErrorInvalidValue);
     switch (groups) {
-      case 1: return launch_mma<1>(FLASH_ARGS);
-      case 2: return launch_mma<2>(FLASH_ARGS);
-      case 3: return launch_mma<3>(FLASH_ARGS);
-      case 4: return launch_mma<4>(FLASH_ARGS);
-      case 5: return launch_mma<5>(FLASH_ARGS);
-      case 6: return launch_mma<6>(FLASH_ARGS);
-      case 7: return launch_mma<7>(FLASH_ARGS);
-      case 8: return launch_mma<8>(FLASH_ARGS);
+      case 1: return launch_mma<1>(MMA_ARGS);
+      case 2: return launch_mma<2>(MMA_ARGS);
+      case 3: return launch_mma<3>(MMA_ARGS);
+      case 4: return launch_mma<4>(MMA_ARGS);
+      case 5: return launch_mma<5>(MMA_ARGS);
+      case 6: return launch_mma<6>(MMA_ARGS);
+      case 7: return launch_mma<7>(MMA_ARGS);
+      case 8: return launch_mma<8>(MMA_ARGS);
       case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
-        return launch_mma<16>(FLASH_ARGS);
+        return launch_mma<16>(MMA_ARGS);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (groups) {
     case 1: return launch_fma<1>(FLASH_ARGS);
     case 2: return launch_fma<2>(FLASH_ARGS);
@@ -515,6 +529,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }
 
 #undef FLASH_ARGS
+#undef MMA_ARGS
 
 }  // namespace
 
@@ -522,15 +537,19 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // that order. window <= 0: no window. scale: the score scale (D^-0.5,
 // as the caller computes it). bf16: 0 for float32 inputs and output, 1 for
 // bfloat16 (then D % 8 == 0 and every pointer and stride 16-byte aligned,
-// which the wrapper checks). Returns cudaGetLastError().
+// which the wrapper checks). lse: null, or (bf16 only) a float32 [b, hq,
+// ldl] buffer, ldl >= sq rounded up to 64, that gets each query row's log
+// of its softmax sum over the scaled scores (what the backward recomputes
+// the probabilities from). Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, const long long* strides, int b,
-                               int hq, int hkv, int sq, int sk, int d,
-                               int causal, int window, float scale,
+                               void* o, void* lse, const long long* strides,
+                               int b, int hq, int hkv, int sq, int sk, int d,
+                               int ldl, int causal, int window, float scale,
                                int bf16, void* stream) {
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
-  return launch(q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale,
-                bf16, static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, o, static_cast<float*>(lse), st, b, hq, hkv, sq, sk,
+                d, ldl, causal, window, scale, bf16,
+                static_cast<cudaStream_t>(stream));
 }

@@ -27,14 +27,30 @@ fallback between the two. ``flash_attention.launch_count`` counts launches.
 
 Gradients: where autograd records and q, k or v requires grad, a call
 goes through :class:`FlashAttentionFunction`, whose forward is the kernel
-(the plain version on CPU tensors) and whose backward differentiates the
-plain version (the reference's kernel has no backward; it trains over
-plain jnp). The plain version holds [B, Hq, rows, Sk] float32 scores, so
-the backward recomputes it in chunks of query rows
-(:func:`_backward_rows`: about ``BACKWARD_SCORES`` scores a chunk, 1 GiB
-in float32), each chunk against the keys its rows can reach (up to its
-last row when causal), summing the chunks' k and v gradients. The whole
-backward is the span ``flash_attention.backward``
+(the plain version on CPU tensors). The reference's kernel has no
+backward (it trains over plain jnp); the port's has two, chosen by what
+the inputs are:
+
+- bfloat16 on the card: a hand-written FlashAttention-2 backward on the
+  tensor cores (``csrc/flash_attention_backward.cu``). The forward kernel
+  then also writes each query row's log-sum-exp, from which the backward
+  recomputes the probabilities tile by tile; no score matrix reaches
+  device memory. ``flash_attention.backward_launch_count`` counts its
+  launches (one a backward: delta, the main kernel and dq's conversion).
+  dq is summed in float32 by atomic adds in whatever order the blocks
+  finish, so its last bits, and with them a bfloat16 training step, are
+  not bit-reproducible from run to run for a given seed (the plain
+  backward is); a deterministic dq would need a partial sum a key tile
+  and an ordered reduction.
+- float32 (which serves the correctness checks and needs exact f32
+  parity) and CPU tensors: the plain version, differentiated by autograd.
+  It holds [B, Hq, rows, Sk] float32 scores, so it is recomputed in chunks
+  of query rows (:func:`_backward_rows`: about ``BACKWARD_SCORES`` scores
+  a chunk, 1 GiB in float32), each chunk against the keys its rows can
+  reach (up to its last row when causal), summing the chunks' k and v
+  gradients.
+
+The whole backward is the span ``flash_attention.backward``
 (:mod:`repro_torch.tracing`), on the CPU as on the card.
 """
 from __future__ import annotations
@@ -53,9 +69,15 @@ _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 BACKWARD_SCORES = 1 << 28       # float32 scores a backward chunk recomputes
 _KERNEL = _build.Kernel("flash_attention", "flash_attention",
-                        [ctypes.c_void_p] * 4
+                        [ctypes.c_void_p] * 5
                         + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int])
+                        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int])
+_BACKWARD = _build.Kernel("flash_attention_backward",
+                          "flash_attention_backward",
+                          [ctypes.c_void_p] * 11
+                          + [ctypes.POINTER(ctypes.c_longlong)]
+                          + [ctypes.c_int] * 9 + [ctypes.c_float],
+                          counter="backward_launch_count")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,17 +137,24 @@ def _backward_rows(batch: int, q_heads: int, keys: int) -> int:
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """The kernel forward with a plain backward. q, k and v are saved as
-    they come (the model's strided ``transpose(1, 2)`` views, no copy);
-    ``backward`` recomputes :func:`flash_attention_ref` chunk by chunk of
-    query rows and differentiates it, inside the span
-    ``flash_attention.backward``. On CPU tensors the forward is the plain
-    version too."""
+    """The kernel forward; the backward kernel for bfloat16 on the card,
+    else the plain backward (see the module docstring), inside the span
+    ``flash_attention.backward``. q, k and v are saved as they come (the
+    model's strided ``transpose(1, 2)`` views, no copy), with the output
+    and its lse where the backward kernel follows. On CPU tensors the
+    forward is the plain version too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        # the backward kernel takes bfloat16 on the card (the forward's
+        # checks hold D % 8 == 0, D <= 256 and the alignment)
+        ctx.kernel = q.dtype == torch.bfloat16 and q.device.type == "cuda"
+        if ctx.kernel:
+            o, lse = _launch(q, k, v, causal, window, with_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return flash_attention_ref(q, k, v, causal=causal, window=window)
         return _launch(q, k, v, causal, window)
@@ -133,10 +162,23 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         with span("flash_attention.backward"):
-            return FlashAttentionFunction._backward(ctx, do)
+            if ctx.kernel:
+                return FlashAttentionFunction._kernel(ctx, do)
+            return FlashAttentionFunction._plain(ctx, do)
 
     @staticmethod
-    def _backward(ctx, do):
+    def _kernel(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1 or not _build.aligned(do):
+            do = do.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = _launch_backward(q, k, v, o, lse, do, ctx.causal,
+                                      ctx.window)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None)
+
+    @staticmethod
+    def _plain(ctx, do):
         q, k, v = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         B, Hq, Sq, _ = q.shape
@@ -177,22 +219,55 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: Optional[int]) -> torch.Tensor:
-    """One kernel launch on checked CUDA inputs."""
+            causal: bool, window: Optional[int], with_lse: bool = False):
+    """One kernel launch on checked CUDA inputs -> o, or (o, lse) with
+    ``with_lse`` (bfloat16 only): lse float32 [B, Hq, Sq rounded up to 64],
+    each query row's log of its softmax sum, the rows past Sq those of the
+    zero-padded tile."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    ldl = -(-Sq // 64) * 64
+    lse = (torch.empty((B, Hq, ldl), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if q.numel():
+        strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                           *v.stride()[:3], *o.stride()[:3])
+        _KERNEL.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(),
+                       None if lse is None else lse.data_ptr(), strides, B,
+                       Hq, Hkv, Sq, Sk, D, ldl, int(bool(causal)),
+                       int(window or 0), float(D ** -0.5),
+                       int(q.dtype == torch.bfloat16),
+                       what=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)} "
+                                    f"{q.dtype}")
+    return o if lse is None else (o, lse)
+
+
+def _launch_backward(q, k, v, o, lse, do, causal: bool,
+                     window: Optional[int]):
+    """The backward kernel on the forward's checked bfloat16 inputs, its
+    output ``o`` and ``lse`` (:func:`_launch`), and an aligned ``do``
+    -> (dq, dk, dv) in q's, k's and v's layouts."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return o
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:3])
-    _KERNEL.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), strides, B, Hq, Hkv, Sq, Sk, D,
-                   int(bool(causal)), int(window or 0), float(D ** -0.5),
-                   int(q.dtype == torch.bfloat16),
-                   what=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)} "
-                                f"{q.dtype}")
-    return o
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
+    dq_acc = torch.empty((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    _BACKWARD.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B,
+                     Hq, Hkv, Sq, Sk, D, lse.shape[-1], int(bool(causal)),
+                     int(window or 0), float(D ** -0.5),
+                     what=lambda: f"backward q {tuple(q.shape)}, k "
+                                  f"{tuple(k.shape)}")
+    return dq, dk, dv
 
 
 flash_attention.launch_count = 0
+flash_attention.backward_launch_count = 0

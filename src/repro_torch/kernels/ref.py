@@ -15,29 +15,73 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def _band(Sq: int, Sk: int, causal: bool, window: Optional[int],
+          q_offset: int, device) -> torch.Tensor:
+    """[Sq, Sk] bool: the (query, key) pairs flash attention attends."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    kpos = torch.arange(Sk, device=device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, return_lse: bool = False):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. Key
     positions start at 0, query positions at ``q_offset`` (0 is the
     kernel's function; a chunk of query rows passes its first row's
-    position); GQA maps q head h to kv head ``h // (Hq // Hkv)``."""
+    position); GQA maps q head h to kv head ``h // (Hq // Hkv)``. With
+    ``return_lse``: (o, lse [B, Hq, Sq] float32), the log of each row's
+    softmax sum over the masked, scaled scores (what the kernel's training
+    forward writes)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qf = q.reshape(B, Hkv, G, Sq, D).to(torch.float32) * (D ** -0.5)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.to(torch.float32))
-    qpos = torch.arange(Sq, device=q.device) + q_offset
-    kpos = torch.arange(Sk, device=q.device)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_band(Sq, Sk, causal, window, q_offset, q.device), s,
+                    NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+    o = o.reshape(B, Hq, Sq, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
+    return o
+
+
+def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` in the form
+    the backward kernel computes them: the probabilities recomputed from the
+    forward's ``lse`` [B, Hq, Sq], ``P = exp(s - lse)`` in the band and 0
+    outside, ``delta = rowsum(do o)``, ``dS = P (do v^T - delta)``, ``dv =
+    P^T do``, ``dk = dS^T q D^-0.5``, ``dq = dS k D^-0.5``, the G q heads of
+    a kv head summed into its dk and dv. Math in float32; each gradient in
+    its input's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    f32, scale = torch.float32, D ** -0.5
+    qf = q.reshape(B, Hkv, G, Sq, D).to(f32)
+    gf = do.reshape(B, Hkv, G, Sq, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf * scale, kf)
+    p = torch.where(_band(Sq, Sk, causal, window, 0, q.device),
+                    torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1)), 0.0)
+    delta = (gf * o.reshape(B, Hkv, G, Sq, D).to(f32)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", gf, vf) - delta)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, gf)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -183,6 +183,63 @@ def test_flash_attention_strided_views_match_contiguous():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+# The backward kernel's plain twin (lse / delta form) against autograd
+# through the plain version, float32, atol 1e-5 (sums in another order).
+# Square shapes under every mask; Sq != Sk under masks that leave every
+# query a key (a query with none has no softmax to differentiate).
+FLASH_GRAD_CASES = (
+    [(B, Hq, Hkv, S, S, D, causal, window)
+     for B, Hq, Hkv, S, D in FLASH_SHAPES + RAGGED_FLASH
+     for causal, window in ((True, None), (False, None), (True, 96),
+                            (True, 7))]
+    + [(1, 4, 2, 64, 150, 16, False, None), (2, 4, 4, 150, 64, 32, False,
+                                              None),
+       (1, 4, 1, 100, 70, 16, True, None), (1, 2, 2, 40, 130, 16, False, 9)])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", FLASH_GRAD_CASES)
+def test_flash_backward_twin_matches_autograd(B, Hq, Hkv, Sq, Sk, D, causal,
+                                              window):
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    q = torch.from_numpy(_normal((B, Hq, Sq, D), Sq))
+    k = torch.from_numpy(_normal((B, Hkv, Sk, D), Sk + 1))
+    v = torch.from_numpy(_normal((B, Hkv, Sk, D), Sk + 2))
+    do = torch.from_numpy(_normal((B, Hq, Sq, D), 3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = flash_attention_ref(*leaves, causal=causal, window=window,
+                                 return_lse=True)
+    want = torch.autograd.grad(o, leaves, do)
+    got = flash_attention_backward_ref(q, k, v, o.detach(), lse.detach(), do,
+                                       causal=causal, window=window)
+    for name, a, b in zip("qkv", got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
+    (2, 4, 2, 100, 100, 16, True, 7), (1, 4, 1, 64, 150, 32, False, None)])
+def test_flash_attention_ref_lse_is_logsumexp(B, Hq, Hkv, Sq, Sk, D, causal,
+                                              window):
+    q = torch.from_numpy(_normal((B, Hq, Sq, D), 1))
+    k = torch.from_numpy(_normal((B, Hkv, Sk, D), 2))
+    v = torch.from_numpy(_normal((B, Hkv, Sk, D), 3))
+    o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    torch.testing.assert_close(o, flash_attention_ref(q, k, v, causal=causal,
+                                                      window=window))
+    s = torch.einsum("bhqd,bhkd->bhqk", q,
+                     k.repeat_interleave(Hq // Hkv, dim=1)) * D ** -0.5
+    qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    band = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        band &= kpos <= qpos
+    if window is not None:
+        band &= kpos > qpos - window
+    want = torch.logsumexp(s.masked_fill(~band, float("-inf")), dim=-1)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
 DECODE_SHAPES = [(2, 8, 2, 512, 64), (1, 4, 4, 256, 32), (3, 16, 2, 384, 16),
                  (2, 4, 1, 100, 80)]
 

@@ -550,7 +550,8 @@ def test_cuda_fused_embed_general_path(cuda_device, dtype, case):
 # flash with Sq != Sk (the kernel masks from position 0 for q and kv
 # alike), cross decode reads the whole 1500-position encoder cache.
 # Gradients: rmsnorm and flash_attention go through their autograd
-# Functions (kernel forward, plain backward) where autograd records; f32
+# Functions where autograd records (kernel forward; rmsnorm's backward
+# plain, flash's the backward kernel in bfloat16 and plain in float32); f32
 # grads within atol 1e-5 of plain autograd's (the same float32 math, k and
 # v summed over query chunks in another order), bf16 at TOL; decode and
 # fused_embed refuse an input that requires grad.
@@ -619,7 +620,9 @@ def test_cuda_rmsnorm_grads_match_plain_autograd(cuda_device, dtype, N, D):
     (1, 32, 8, 1024, 1024, 80, True, 4096),
     (1, 16, 16, 448, 1500, 64, False, None),
     (1, 16, 16, 1500, 1500, 64, False, None),
-    (1, 8, 2, 300, 300, 128, True, 64)])
+    (1, 8, 2, 300, 300, 128, True, 64),
+    (1, 32, 8, 2048, 2048, 80, True, 4096),     # danube-train, cut
+    (1, 8, 1, 700, 700, 256, True, 256)])       # gemma-like: MQA, D 256
 def test_cuda_flash_attention_grads_match_plain_autograd(
         cuda_device, dtype, B, Hq, Hkv, Sq, Sk, D, causal, window):
     q = _randn((B, Sq, Hq, D), 1, cuda_device, dtype)
@@ -634,16 +637,63 @@ def test_cuda_flash_attention_grads_match_plain_autograd(
 
     want = _plain_grads(ref, (q, k, v), do)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    before = flash_attention.launch_count
+    before = (flash_attention.launch_count,
+              flash_attention.backward_launch_count)
     o = flash_attention(*(t.transpose(1, 2) for t in leaves), causal=causal,
                         window=window)
     assert o.grad_fn is not None
     got = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert flash_attention.launch_count == before + 1
+    # bf16: the backward kernel, one launch; f32: the plain backward
+    assert (flash_attention.launch_count - before[0],
+            flash_attention.backward_launch_count - before[1]) == (
+        1, int(dtype == torch.bfloat16))
     for a, b in zip(got, want):
         _assert_close(a, b, dtype, GRAD_TOL[dtype] * max(
             1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
+    (1, 2, 1, 128, 128, 16, True, None), (2, 4, 2, 256, 256, 32, False, None),
+    (1, 4, 2, 100, 100, 48, True, 7), (2, 8, 1, 128, 128, 64, True, None),
+    (1, 4, 2, 37, 37, 80, True, 16), (1, 32, 8, 1024, 1024, 80, True, 4096),
+    (2, 4, 2, 200, 200, 96, False, 33), (1, 8, 2, 300, 300, 128, True, 64),
+    (1, 16, 16, 448, 1500, 64, False, None), (1, 4, 4, 150, 64, 64, False,
+                                               None),
+    (1, 2, 2, 1, 1, 80, True, None), (1, 8, 1, 320, 320, 256, True, 96),
+    (1, 4, 2, 130, 130, 200, False, None), (2, 16, 16, 500, 500, 80, False,
+                                            None)])
+def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
+                                                 Sk, D, causal, window):
+    """The backward kernel against its plain twin on the same bf16 inputs,
+    o and lse (the kernel's forward): both compute in float32 and round
+    once, so within one bf16 ulp plus 1e-3 of the largest gradient (the
+    kernel's P and dS carried as bf16 hi + lo, ~2^-17 relative). The lse
+    within 1e-4 of the plain version's; the forward's output the same with
+    and without it."""
+    from repro_torch.kernels.flash_attention import _launch, _launch_backward
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    bf = torch.bfloat16
+    q = _randn((B, Sq, Hq, D), 1, cuda_device, bf).transpose(1, 2)
+    k = _randn((B, Sk, Hkv, D), 2, cuda_device, bf).transpose(1, 2)
+    v = _randn((B, Sk, Hkv, D), 3, cuda_device, bf).transpose(1, 2)
+    do = _randn((B, Hq, Sq, D), 4, cuda_device, bf)
+    o, lse = _launch(q, k, v, causal, window, with_lse=True)
+    assert torch.equal(o, _launch(q, k, v, causal, window))
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert lse.shape == (B, Hq, -(-Sq // 64) * 64)
+    torch.testing.assert_close(lse[..., :Sq], want_lse, rtol=0, atol=1e-4)
+    before = flash_attention.backward_launch_count
+    got = _launch_backward(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launch_count == before + 1
+    want = flash_attention_backward_ref(q, k, v, o, lse[..., :Sq], do,
+                                        causal=causal, window=window)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.stride() == t.stride()
+        _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
 
 
 @pytest.mark.cuda
