@@ -6,11 +6,13 @@ Everything a cell is made of is found by name: its entry (in
 ``BENCHMARK.json``, or in ``perfbench/held.json`` for a cell held out of
 the benchmark), its configuration file (``configs``), its traffic mix
 (``perfbench/traffic/<traffic>.json``), the limits of its comparison
-(``perfbench/limits/<workload>.json``) and a reader for each metric
-(``perfbench/metrics/<metric>.py``). A traffic mix's ``kind`` picks the
-loop: ``serve`` drives ``repro_torch.launch.serve.ServingEngine.generate``
-in a closed loop, ``train`` the step of ``repro_torch.training
-.make_train_step``.
+(``perfbench/limits/<workload>.json``), a reader for each metric
+(``perfbench/metrics/<metric>.py``), and the architecture file that the
+configuration's key ``"arch"`` names, which describes its model: weight
+layout, reference, FLOP counts and smoke cut (``perfbench/archs``). A
+traffic mix's ``kind`` picks the loop: ``serve`` drives
+``repro_torch.launch.serve.ServingEngine.generate`` in a closed loop,
+``train`` the step of ``repro_torch.training.make_train_step``.
 
 ``rehearse=True`` runs the same path on the CPU at smoke width
 (``perfbench.rehearsal``), with the kernels' plain versions; only the
@@ -22,14 +24,15 @@ import dataclasses
 import importlib.util
 import json
 import time
+import typing
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from perfbench import flops, peaks, reference, traffic, weights
+from perfbench import archs, flops, peaks, reference, traffic, weights
 from perfbench.trace import Profiled, kernel_seconds
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,11 +65,42 @@ def cell(name: str, bench: Optional[dict] = None) -> SimpleNamespace:
     if wl is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == wl["config"])
+    cfg = load_json(ROOT / conf["file"])
     return SimpleNamespace(
-        name=name, workload=wl, cfg=load_json(ROOT / conf["file"]),
+        name=name, workload=wl, cfg=cfg, arch=load_arch(conf["file"], cfg),
         mix=load_json(HERE / "traffic" / f"{wl['traffic']}.json"),
         limits=load_json(HERE / "limits" / f"{name}.json"),
         metrics=metrics_of(bench, name))
+
+
+def load_arch(conf_file: str, cfg: dict) -> ModuleType:
+    """The architecture file that the configuration in ``conf_file``
+    names under ``"arch"`` (a path from the repository's root), loaded;
+    it has to define ``archs.INTERFACE``."""
+    path = cfg.get("arch")
+    if path is None:
+        raise SystemExit(f"{conf_file}: no key \"arch\" naming the file "
+                         "that describes its model (perfbench/archs)")
+    if not (ROOT / path).is_file():
+        raise SystemExit(f"{conf_file}: its arch file {path} is not there")
+    sp = importlib.util.spec_from_file_location(
+        "perfbench_arch_" + "".join(ch if ch.isalnum() else "_"
+                                    for ch in path), ROOT / path)
+    mod = importlib.util.module_from_spec(sp)
+    sp.loader.exec_module(mod)
+    missing = [n for n in archs.INTERFACE if not hasattr(mod, n)]
+    if missing:
+        raise SystemExit(f"{conf_file}: its arch file {path} lacks "
+                         f"{', '.join(missing)}")
+    return mod
+
+
+def counts(arch: ModuleType) -> SimpleNamespace:
+    """What the metrics read as ``ctx.flops``: the architecture file's
+    names over those of ``perfbench.flops``."""
+    return SimpleNamespace(**{k: v for src in (flops, arch)
+                              for k, v in vars(src).items()
+                              if not k.startswith("_")})
 
 
 def metrics_of(bench: dict, name: str) -> Dict[str, List[dict]]:
@@ -92,13 +126,27 @@ def reader(metric: str) -> Callable:
 
 
 def model_config(cfg: dict):
-    """The program's ``ModelConfig`` of a configuration file."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig
-    keys = {f.name for f in dataclasses.fields(ModelConfig)} - {"source"}
-    kw = {k: v for k, v in cfg.items() if k in keys}
-    if kw.get("moe"):
-        kw["moe"] = MoEConfig(**kw["moe"])
-    return ModelConfig(source=cfg["source"], **kw)
+    """The program's ``ModelConfig`` of a configuration file: the fields
+    the file gives (other keys ignored), each read by its type."""
+    from repro_torch.configs.base import ModelConfig
+    return from_json(ModelConfig, cfg)
+
+
+def from_json(hint, value):
+    """``value``, as JSON gives it, as the type ``hint``: a dataclass
+    (``ModelConfig``, its sub-configs) from a dict of its fields, each
+    read by its own type, and a tuple from a list, so that a frozen config
+    still hashes; ``Optional[X]`` as ``X``."""
+    args = [a for a in typing.get_args(hint) if a is not type(None)]
+    if typing.get_origin(hint) is typing.Union and len(args) == 1:
+        hint = args[0]
+    if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+        hints = typing.get_type_hints(hint)
+        return hint(**{f.name: from_json(hints[f.name], value[f.name])
+                       for f in dataclasses.fields(hint) if f.name in value})
+    if typing.get_origin(hint) is tuple and isinstance(value, list):
+        return tuple(value)
+    return value
 
 
 def launches() -> Dict[str, int]:
@@ -170,9 +218,9 @@ class ServeLoop:
                 chosen.append(same[int(pick.integers(len(same)))])
         if not chosen:
             raise RuntimeError("no finished call of the lengths to check")
-        ref = reference.Forward(self.c.cfg, self.params)
-        low = (reference.Forward(self.c.cfg, self.params, "fp8") if control
-               else None)
+        forward = self.c.arch.Forward
+        ref = forward(self.c.cfg, self.params)
+        low = forward(self.c.cfg, self.params, "fp8") if control else None
         gaps, ctl = [], []
         for call in chosen:
             prompts = torch.as_tensor(self.traffic.prompts(call["i"]),
@@ -269,15 +317,16 @@ class TrainLoop:
         del self.params, self.state, self.step_fn
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        mix = self.c.mix
-        p0 = weights.make(self.c.cfg, self.seed, self.device)
+        c, mix = self.c, self.c.mix
+        p0 = weights.make(c.cfg, c.arch.layout(c.cfg), self.seed, self.device)
         batches = [self.batch(i)["tokens"] for i in range(mix["check_steps"])]
-        ref = reference.train(self.c.cfg, mix["optimizer"], p0, batches,
-                              mix["accum"])
+        ref = reference.train(c.cfg, mix["optimizer"], p0, batches,
+                              mix["accum"], loss=c.arch.loss)
         out = compare_train(self.seen, ref)
         if control:
-            low = reference.train(self.c.cfg, mix["optimizer"], p0, batches,
-                                  mix["accum"], precision="fp8")
+            low = reference.train(c.cfg, mix["optimizer"], p0, batches,
+                                  mix["accum"], precision="fp8",
+                                  loss=c.arch.loss)
             out.update({f"control.{k}": v
                         for k, v in compare_train(low, ref).items()})
         return out
@@ -356,7 +405,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
         _build.build_all()
         log(f"kernel builds this run (s): {_build.build_seconds}")
     mcfg = model_config(c.cfg)
-    params = weights.make(c.cfg, seed, device)
+    params = weights.make(c.cfg, c.arch.layout(c.cfg), seed, device)
     loop = LOOPS[c.mix["kind"]](c, mcfg, params, device, seed, log)
     del params
     loop.warm()
@@ -373,14 +422,21 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
     log(f"launches after the window: {launches()}")
     log_window(w, log)
     ctx = SimpleNamespace(
-        cfg=c.cfg, mix=c.mix, flops=flops, peaks=peaks, setup_s=setup_s,
+        cfg=c.cfg, mix=c.mix, flops=counts(c.arch), peaks=peaks,
+        setup_s=setup_s,
         window=w, log=log,
         trace_seconds=lambda names, per_launch, wrapper: kernel_seconds(
             w.trace, names, per_launch, wrapper, log))
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in c.metrics[kind]:
-        value = reader(m["name"])(ctx)
+        try:
+            value = reader(m["name"])(ctx)
+        except AttributeError as e:
+            if e.obj is not ctx.flops:
+                raise
+            log(f"metric {m['name']}: the arch file has no {e.name}")
+            value = None
         if value is None:
             log(f"metric {m['name']}: nothing to read in this run")
         else:

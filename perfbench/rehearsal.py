@@ -1,7 +1,7 @@
 """The CPU rehearsal of a cell, for the benchmark's tests only: the same
-harness path at smoke width (a few layers, narrow widths, short prompts),
-on the CPU, where every kernel wrapper runs its plain version. Nothing of
-it is a measurement of the card.
+harness path at smoke width (the cell's architecture's cut: a few layers,
+narrow widths), with short prompts, on the CPU, where every kernel wrapper
+runs its plain version. Nothing of it is a measurement of the card.
 
 The program runs in float32 there, so a sound run agrees with the float32
 reference to rounding and every compared number is held to ``LIMIT``; the
@@ -12,20 +12,11 @@ from __future__ import annotations
 import copy
 from types import SimpleNamespace
 
-SMOKE = {"d_model": 64, "num_heads": 4, "head_dim": 16, "d_ff": 128,
-         "vocab_size": 512, "dtype": "float32", "param_dtype": "float32"}
 LIMIT = 1e-3
 
 
 def shrink(c: SimpleNamespace) -> SimpleNamespace:
-    cfg = dict(c.cfg, **SMOKE)
-    cfg["num_layers"] = 2
-    cfg["num_kv_heads"] = min(c.cfg["num_kv_heads"], 2)
-    if cfg.get("sliding_window"):
-        cfg["sliding_window"] = 48      # shorter than the longest prompt
-    if cfg.get("moe"):
-        cfg["moe"] = dict(cfg["moe"], num_experts=8, top_k=2,
-                          d_ff_expert=32)
+    cfg = dict(c.arch.smoke(c.cfg), dtype="float32", param_dtype="float32")
     mix = copy.deepcopy(c.mix)
     if mix["kind"] == "serve":
         mix["slots"] = 16

@@ -1,6 +1,8 @@
-"""The benchmark's plain reference against the program on the CPU at a
-small float32 size (the test loads both; the reference itself loads
-nothing of the program), and the weight layout against the program's."""
+"""The benchmark's plain reference (``perfbench/archs/transformer.py`` over
+``perfbench.reference``) against the program on the CPU at a small
+float32 size (the test loads both; the reference itself loads nothing of
+the program), and each configuration's weight layout, through its own
+architecture file, against the program's."""
 import json
 import sys
 from pathlib import Path
@@ -12,6 +14,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import harness, reference, weights  # noqa: E402
+from perfbench.archs import transformer  # noqa: E402
 
 SMALL = {"source": "test", "arch_id": "small", "num_layers": 3, "d_model": 32, "num_heads": 4,
          "num_kv_heads": 2, "head_dim": 8, "d_ff": 48, "vocab_size": 200,
@@ -39,14 +42,14 @@ def _program(cfg):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_reference_logits_match_the_program(name):
     cfg = CONFIGS[name]
-    w = weights.make(cfg, 3, "cpu")
+    w = weights.make(cfg, transformer.layout(cfg), 3, "cpu")
     tokens = torch.randint(0, cfg["vocab_size"], (3, 12),
                            generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         got, _ = _program(cfg).apply(w, tokens)
-    want = reference.Forward(cfg, w).logits(tokens)
+    want = transformer.Forward(cfg, w).logits(tokens)
     assert torch.allclose(got[..., :cfg["vocab_size"]], want, atol=2e-5)
-    last = reference.Forward(cfg, w).logits(tokens, torch.tensor([11]))
+    last = transformer.Forward(cfg, w).logits(tokens, torch.tensor([11]))
     assert torch.allclose(last, want[:, 11:], atol=1e-6)
 
 
@@ -55,7 +58,7 @@ def test_reference_train_steps_match_the_program(name):
     from repro_torch.training import (OptimizerConfig, init_state,
                                       make_train_step)
     cfg = CONFIGS[name]
-    w = weights.make(cfg, 4, "cpu")
+    w = weights.make(cfg, transformer.layout(cfg), 4, "cpu")
     batches = [torch.randint(0, cfg["vocab_size"], (4, 10),
                              generator=torch.Generator().manual_seed(i))
                for i in range(2)]
@@ -68,7 +71,8 @@ def test_reference_train_steps_match_the_program(name):
         if i == 0:
             g1 = {k: float(m.norm()) / (1 - OPT["beta1"])
                   for k, m in weights.leaves(s.m).items()}
-    ref = reference.train(cfg, OPT, w, batches, accum=2)
+    ref = reference.train(cfg, OPT, w, batches, accum=2,
+                          loss=transformer.loss)
     assert losses == pytest.approx(ref["losses"], rel=1e-5)
     for k, v in ref["grad_norms"].items():
         assert g1[k] == pytest.approx(v, rel=1e-4, abs=1e-9), k
@@ -84,7 +88,7 @@ def test_weight_layout_is_the_programs(conf):
     with open(conf) as f:
         cfg = json.load(f)
     want = weights.leaves(_program(cfg).abstract())
-    got = weights.layout(cfg)
+    got = harness.load_arch(conf.name, cfg).layout(cfg)
     assert sorted(got) == sorted(want)
     for k, (shape, _) in got.items():
         assert tuple(want[k].shape) == shape, k

@@ -1,7 +1,7 @@
 """BENCHMARK.json keeps to its contract's characters and keys (and so do
 the held entries of ``perfbench/held.json``), every cell finds its files
-by name, and no module the harness loads is of the JAX package (top-level
-names compared whole)."""
+by name (its architecture file too), and no module the harness loads is
+of the JAX package (top-level names compared whole)."""
 import json
 import os
 import re
@@ -70,7 +70,7 @@ def test_names_units_and_keys(spec):
 
 @pytest.mark.parametrize("spec", [_spec, _held])
 def test_every_cell_finds_its_files(spec):
-    from perfbench import harness
+    from perfbench import archs, harness
     b = spec()
     e2e = {m["name"] for m in b["end_to_end"]}
     for w in b["workloads"]:
@@ -85,6 +85,8 @@ def test_every_cell_finds_its_files(spec):
             assert m["moves"] in {x["name"] for x in got["end_to_end"]}
         assert c.limits and c.mix["kind"] in harness.LOOPS
         assert c.cfg["vocab_size"] > 0
+        assert (ROOT / c.cfg["arch"]).is_file()
+        assert all(callable(getattr(c.arch, n)) for n in archs.INTERFACE)
 
 
 def test_banned_modules_compares_whole_names():
