@@ -2790,17 +2790,37 @@ def lm_timings(dev, slots: int, prompt: int, gen_tokens: int):
         _bound(2.0 * Bw * Sw * Dw * 4 * Hw, 4.0 * Bw * Hw * Dw * Sw * Sw,
                BF16_FLOPS_PER_S),
         [Bw, Hw, Hw, Sw, Dw], ATTN_BF16_TOL)
+    del q, k, v
+    # moonlight-train-8k's training forward: latent attention, q.k 192
+    # (128 + 64 rope), values 128 (the last 128 columns of each head's
+    # up-projection), 16 heads, causal over the 8192-token context
+    Bm, Hm, Sm = 2, 16, 8192
+    q = randn((Bm, Sm, Hm, 192)).transpose(1, 2)
+    k = randn((Bm, Sm, Hm, 192)).transpose(1, 2)
+    v = randn((Bm, Sm, Hm, 256))[..., 128:].transpose(1, 2)
+    pairs = Sm * (Sm + 1) / 2
+    res["flash_attention_moonlight"] = _timed(
+        "flash_attention",
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        10,
+        _bound(2.0 * Bm * Sm * Hm * (2 * 192 + 2 * 128),
+               2.0 * Bm * Hm * (192 + 128) * pairs, BF16_FLOPS_PER_S),
+        [Bm, Hm, Hm, Sm, 192, 128], ATTN_BF16_TOL)
     return res
 
 
 # the backward kernel's rows (PERF.md §6): (label, B, Hq, Hkv, Sq, Sk, D,
-# causal, window) of danube-train's call, whisper-medium's encoder,
-# olmoe-1b-7b's and gemma-2b's at their 4096-token training shapes
+# causal, window[, Dv]) of danube-train's call, whisper-medium's encoder,
+# olmoe-1b-7b's and gemma-2b's at their 4096-token training shapes, and
+# moonlight-train-8k's (q.k 192, values 128)
 FLASH_BWD_CELLS = (
     ("danube_train", 2, 32, 8, 4096, 4096, 80, True, None),
     ("whisper_encoder", 2, 16, 16, 1500, 1500, 64, False, None),
     ("olmoe_train", 2, 16, 16, 4096, 4096, 128, True, None),
-    ("gemma_train", 2, 8, 1, 4096, 4096, 256, True, None))
+    ("gemma_train", 2, 8, 1, 4096, 4096, 256, True, None),
+    ("moonlight_train", 2, 16, 16, 8192, 8192, 192, True, None, 128))
 
 
 def flash_backward_timings(dev):
@@ -2812,8 +2832,9 @@ def flash_backward_timings(dev):
     to the plain chunked backward, which differentiates its own float32
     recompute, is printed. Then timed plain, kernel, kernel, plain, and
     autograd through SDPA as the library yardstick (the port never calls
-    it). Bound: the five products, 10 D FLOPs a pair in the band, or the
-    bytes of q, k, v, o, dO, lse read and dq, dk, dv written once."""
+    it). Bound: the five products, 2 (3 D + 2 Dv) FLOPs a pair in the band
+    (10 D where Dv = D), or the bytes of q, k, v, o, dO, lse read and dq,
+    dk, dv written once."""
     import torch.nn.functional as F
     from types import SimpleNamespace
 
@@ -2826,11 +2847,13 @@ def flash_backward_timings(dev):
     bf = torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(5)
     res = {}
-    for label, B, Hq, Hkv, Sq, Sk, D, causal, window in FLASH_BWD_CELLS:
-        q, do = (torch.randn((B, Sq, Hq, D), generator=g).to(dev, bf)
-                 .transpose(1, 2) for _ in range(2))
-        k, v = (torch.randn((B, Sk, Hkv, D), generator=g).to(dev, bf)
-                .transpose(1, 2) for _ in range(2))
+    for label, B, Hq, Hkv, Sq, Sk, D, causal, window, *dv in \
+            FLASH_BWD_CELLS:
+        Dv = dv[0] if dv else D
+        q, do = (torch.randn((B, Sq, Hq, d), generator=g).to(dev, bf)
+                 .transpose(1, 2) for d in (D, Dv))
+        k, v = (torch.randn((B, Sk, Hkv, d), generator=g).to(dev, bf)
+                .transpose(1, 2) for d in (D, Dv))
         o, lse = _launch(q, k, v, causal, window, with_lse=True)
         ctx = SimpleNamespace(saved_tensors=(q, k, v),
                               needs_input_grad=(True,) * 3, causal=causal,
@@ -2886,10 +2909,10 @@ def flash_backward_timings(dev):
                 kernel()
             torch.cuda.synchronize()
         parts = {n[:40]: us / reps / 1e3 for n, us in _kernel_us(prof).items()}
-        b_ms, by = _bound(2.0 * (4 * B * Hq * Sq * D + 4 * B * Hkv * Sk * D)
-                          + 4.0 * B * Hq * Sq, 10.0 * D * pairs,
+        b_ms, by = _bound(2.0 * (2 * (D + Dv) * (B * Hq * Sq + B * Hkv * Sk))
+                          + 4.0 * B * Hq * Sq, 2.0 * (3 * D + 2 * Dv) * pairs,
                           BF16_FLOPS_PER_S)
-        res[label] = {"shape": [B, Hq, Hkv, Sq, Sk, D, causal, window],
+        res[label] = {"shape": [B, Hq, Hkv, Sq, Sk, D, causal, window, Dv],
                       "device_ms": dev_ms, "events_per_call": events,
                       "ms": min(k1, k2), "plain_ms": min(p1, p2),
                       "library_ms": lib, "library_device_ms": lib_dev,

@@ -30,6 +30,40 @@ class MoEConfig:
     # 'ragged' -> sort + jax.lax.ragged_dot, EP under shard_map (production)
     impl: str = "ragged"
     router_aux_coef: float = 0.01
+    # router scores: 'softmax' over the experts, or 'sigmoid' of each
+    # (DeepSeek-V3's noaux_tc, with n_group = topk_group = 1)
+    scoring: str = "softmax"
+    # a fixed bias added to the scores for the choice of the top-k only
+    # (the gates stay the unbiased scores); empty for none, else one a
+    # routed expert, the same in every layer
+    selection_bias: Tuple[float, ...] = ()
+    # the renormalised gates times this (routed_scaling_factor)
+    routed_scaling: float = 1.0
+    # chips a layer's experts are divided over: this one holds the first
+    # num_experts of num_experts * expert_shards, which the router scores
+    expert_shards: int = 1
+
+    @property
+    def routed_experts(self) -> int:
+        """Experts the router scores: those of every chip."""
+        return self.num_experts * self.expert_shards
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention without a q LoRA (DeepSeek-V2/V3,
+    Moonlight): keys and values come up from one RMS-normed latent of
+    ``kv_lora_rank`` per position; q and k carry ``qk_nope_head_dim``
+    plain columns and ``qk_rope_head_dim`` rotated ones, the rotated key
+    shared by every head; values are ``v_head_dim`` wide."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -92,6 +126,10 @@ class ModelConfig:
     # MoE / SSM / hybrid
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # latent attention in place of GQA (every attention layer)
+    mla: Optional[MLAConfig] = None
+    # leading layers with a dense MLP of d_ff before an MoE stack
+    first_dense_layers: int = 0
     # hybrid (Griffin) layer pattern, cycled over num_layers.
     # entries: 'attn' | 'rglru'
     block_pattern: Optional[Tuple[str, ...]] = None
@@ -161,6 +199,14 @@ class ModelConfig:
         unembed = 0 if self.tie_embeddings else self.vocab_size * d
 
         def attn_params() -> int:
+            if self.mla:
+                a = self.mla
+                return (d * n_q * a.qk_head_dim
+                        + d * (a.kv_lora_rank + a.qk_rope_head_dim)
+                        + a.kv_lora_rank
+                        + a.kv_lora_rank * n_q * (a.qk_nope_head_dim
+                                                  + a.v_head_dim)
+                        + n_q * a.v_head_dim * d)
             return d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
 
         def mlp_params(ff: int) -> int:
@@ -182,7 +228,7 @@ class ModelConfig:
             return 2 * d * w + w * d + w * self.ssm_conv() + 3 * w
 
         total = embed + unembed
-        for kind in self.layer_kinds():
+        for i, kind in enumerate(self.layer_kinds()):
             total += 2 * d  # two norms
             if kind == "attn":
                 total += attn_params() + mlp_params(self.d_ff)
@@ -190,11 +236,12 @@ class ModelConfig:
                 total += ssm_params() + (mlp_params(self.d_ff) if self.d_ff else 0)
             elif kind == "rglru":
                 total += rglru_params() + mlp_params(self.d_ff)
-            if self.is_moe and kind == "attn":
+            if self.is_moe and kind == "attn" \
+                    and i >= self.first_dense_layers:
                 m = self.moe
                 total -= mlp_params(self.d_ff)
                 n_e = m.top_k if active_only else m.num_experts
-                total += 3 * d * m.d_ff_expert * n_e + d * m.num_experts
+                total += 3 * d * m.d_ff_expert * n_e + d * m.routed_experts
                 total += 3 * d * m.d_ff_expert * m.num_shared_experts
         total += d  # final norm
         return int(total)

@@ -7,11 +7,15 @@
 // head h reading kv head h // (Hq / Hkv). The LM's prefill runs it once per
 // layer (src/repro/models/attention.py, attn_apply).
 //
-// q is [B, Hq, Sq, D], k/v are [B, Hkv, Sk, D], o is [B, Hq, Sq, D], each
-// given by its (batch, head, position) strides in elements with the last
-// dim contiguous, so the model passes its [B, S, H, D] activations as
-// strided views and no transpose is copied. Query and key positions both
-// start at 0. Any S: the ragged edge is masked, not padded. D <= 256.
+// q is [B, Hq, Sq, D], k is [B, Hkv, Sk, D], v is [B, Hkv, Sk, Dv], o is
+// [B, Hq, Sq, Dv], each given by its (batch, head, position) strides in
+// elements with the last dim contiguous, so the model passes its
+// [B, S, H, D] activations as strided views and no transpose is copied.
+// Query and key positions both start at 0. Any S: the ragged edge is
+// masked, not padded. D <= 256. Dv is D, or (latent attention: q.k over
+// 128 + 64 rope columns, values 128 wide) smaller: any Dv <= D in f32, and
+// in bf16 the instance for D 192, Dv 128, whose P V products and O tiles
+// are Dv wide rather than padded to D.
 //
 // What bounds it on an H100: at the serving prefill (B 32, S 512, D 80)
 // the bytes (q, k, v read once, o written once: 0.063 ms at 3.35 TB/s)
@@ -79,23 +83,23 @@ struct Strides {
 
 // -- float32: FMA on the CUDA cores -----------------------------------------
 
-__host__ __device__ constexpr int fma_smem_floats(int d) {
-  return BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1);
+__host__ __device__ constexpr int fma_smem_floats(int d, int dv) {
+  return BQ * (d + 1) + BK * (d + 1) + BK * dv + BQ * (BK + 1);
 }
 
-// JD = ceil(D / 16): output column groups per thread.
+// JD = ceil(Dv / 16): output column groups per thread.
 template <int JD>
 __global__ void __launch_bounds__(FMA_THREADS)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  Strides st, int hq, int hkv, int sq, int sk, int d,
-                 int causal, int window, float scale) {
+                 int dv, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;                  // [BQ][d + 1]
   float* ks = qs + BQ * ld;          // [BK][d + 1]
-  float* vs = ks + BK * ld;          // [BK][d]
-  float* ps = vs + BK * d;           // [BQ][BK + 1]
+  float* vs = ks + BK * ld;          // [BK][dv]
+  float* ps = vs + BK * dv;          // [BQ][BK + 1]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -129,9 +133,11 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // previous tile's ps / vs fully read (and qs written)
     for (int e = tid; e < BK * d; e += FMA_THREADS) {
       const int r = e / d, c = e % d;
-      const bool in = k0 + r < sk;
-      ks[r * ld + c] = in ? kp[(k0 + r) * st.ks + c] : 0.f;
-      vs[r * d + c] = in ? vp[(k0 + r) * st.vs + c] : 0.f;
+      ks[r * ld + c] = k0 + r < sk ? kp[(k0 + r) * st.ks + c] : 0.f;
+    }
+    for (int e = tid; e < BK * dv; e += FMA_THREADS) {
+      const int r = e / dv, c = e % dv;
+      vs[r * dv + c] = k0 + r < sk ? vp[(k0 + r) * st.vs + c] : 0.f;
     }
     __syncthreads();
 
@@ -197,7 +203,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
         const int col = tx + 16 * j;
-        const float vv = col < d ? vs[c * d + col] : 0.f;
+        const float vv = col < dv ? vs[c * dv + col] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -212,7 +218,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int col = tx + 16 * j;
-      if (col < d) op[qpos * st.os + col] = acc[i][j] / den;
+      if (col < dv) op[qpos * st.os + col] = acc[i][j] / den;
     }
   }
 }
@@ -220,9 +226,9 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int JD>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
                const Strides& st, int b, int hq, int hkv, int sq, int sk,
-               int d, int causal, int window, float scale,
+               int d, int dv, int causal, int window, float scale,
                cudaStream_t stream) {
-  const int smem = fma_smem_floats(d) * static_cast<int>(sizeof(float));
+  const int smem = fma_smem_floats(d, dv) * static_cast<int>(sizeof(float));
   static attn::SmemLimit limit;
   const cudaError_t err =
       limit.allow(reinterpret_cast<const void*>(flash_fma_kernel<JD>), smem);
@@ -231,7 +237,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
   flash_fma_kernel<JD><<<grid, FMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st, hq, hkv, sq,
-      sk, d, causal, window, scale);
+      sk, d, dv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -239,9 +245,10 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
 
 __host__ __device__ constexpr int mma_ld(int ks) { return 16 * ks + 8; }
 
-__host__ __device__ constexpr int mma_smem_bytes(int ks) {
-  // q tile, then K and V in two stages each, rows of mma_ld(ks) bf16
-  return (BQ + 4 * BK) * mma_ld(ks) * 2;
+__host__ __device__ constexpr int mma_smem_bytes(int ks, int kv) {
+  // q tile and K in two stages, rows of mma_ld(ks) bf16; V in two stages,
+  // rows of mma_ld(kv)
+  return ((BQ + 2 * BK) * mma_ld(ks) + 2 * BK * mma_ld(kv)) * 2;
 }
 
 // Copy rows [row0, row0 + 64) of a [S, d] operand (row stride `stride`)
@@ -259,20 +266,23 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
   }
 }
 
-// KS = ceil(D / 16): k16 steps of Q K^T; 2 * KS n8 column tiles of O.
-template <int KS>
+// KS = ceil(D / 16): k16 steps of Q K^T; KV = ceil(Dv / 16) (KS but for
+// latent attention's narrower values): 2 * KV n8 column tiles of O.
+template <int KS, int KV>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, Strides st, int hq, int hkv, int sq,
-                 int sk, int d, int ldl, int causal, int window,
+                 int sk, int d, int dv, int ldl, int causal, int window,
                  float scale_log2) {
   constexpr int DP = 16 * KS;
+  constexpr int DPV = 16 * KV;
   constexpr int LD = mma_ld(KS);
+  constexpr int LDV = mma_ld(KV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
   bf16* ks = qs + BQ * LD;                        // [2][BK][LD]
-  bf16* vs = ks + 2 * BK * LD;                    // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                    // [2][BK][LDV]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -282,12 +292,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kp = k + b * st.kb + kvh * st.kh;
   const bf16* vp = v + b * st.vb + kvh * st.vh;
   bf16* op = o + b * st.ob + h * st.oh;
-  const int chunks = d / 8;
+  const int chunks = d / 8, chunks_v = dv / 8;
 
-  // columns [d, DP) of every tile: zero, never written by the copies
+  // columns [d, DP) of the q and K tiles and [dv, DPV) of the V tiles:
+  // zero, never written by the copies
   const int pad = (DP - d) / 8;
-  for (int e = tid; e < (BQ + 4 * BK) * pad; e += MMA_THREADS)
+  for (int e = tid; e < (BQ + 2 * BK) * pad; e += MMA_THREADS)
     *reinterpret_cast<uint4*>(qs + (e / pad) * LD + d + (e % pad) * 8) =
+        make_uint4(0, 0, 0, 0);
+  const int pad_v = (DPV - dv) / 8;
+  for (int e = tid; e < 2 * BK * pad_v; e += MMA_THREADS)
+    *reinterpret_cast<uint4*>(vs + (e / pad_v) * LDV + dv + (e % pad_v) * 8) =
         make_uint4(0, 0, 0, 0);
 
   const int q_last = min(q0 + BQ, sq) - 1;
@@ -299,16 +314,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   copy_tile<LD>(qs, qp, st.qs, q0, sq, chunks, tid);
   if (n_tiles > 0) {
     copy_tile<LD>(ks, kp, st.ks, t0 * BK, sk, chunks, tid);
-    copy_tile<LD>(vs, vp, st.vs, t0 * BK, sk, chunks, tid);
+    copy_tile<LDV>(vs, vp, st.vs, t0 * BK, sk, chunks_v, tid);
   }
   attn::cp_async_commit();
 
-  // Q's A fragments: in registers up to KS 8, else from shared memory
-  constexpr bool QREG = KS <= 8;
+  // Q's A fragments in registers while they and the O accumulators fit
+  // (D <= 128, and D 192 beside Dv 128), else from shared memory
+  constexpr bool QREG = 4 * KS + 8 * KV <= 112;
   uint32_t qf[QREG ? KS : 1][4];
-  float acc[2 * KS][4];
+  float acc[2 * KV][4];
 #pragma unroll
-  for (int n = 0; n < 2 * KS; ++n)
+  for (int n = 0; n < 2 * KV; ++n)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -320,7 +336,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (i + 1 < n_tiles) {
       const int nxt = (i + 1) & 1;
       copy_tile<LD>(ks + nxt * BK * LD, kp, st.ks, k0 + BK, sk, chunks, tid);
-      copy_tile<LD>(vs + nxt * BK * LD, vp, st.vs, k0 + BK, sk, chunks, tid);
+      copy_tile<LDV>(vs + nxt * BK * LDV, vp, st.vs, k0 + BK, sk, chunks_v,
+                     tid);
     }
     attn::cp_async_commit();
     attn::cp_async_wait<1>();     // tile i (and q) landed
@@ -334,7 +351,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     const bf16* kt = ks + (i & 1) * BK * LD;
-    const bf16* vt = vs + (i & 1) * BK * LD;
+    const bf16* vt = vs + (i & 1) * BK * LDV;
 
     // S = Q K^T: 16 rows x 64 keys a warp, 8 n8 tiles
     float s[8][4];
@@ -399,7 +416,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * corr[hr] + sum[hr];
 #pragma unroll
-    for (int n = 0; n < 2 * KS; ++n) {
+    for (int n = 0; n < 2 * KV; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -415,10 +432,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       attn::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       attn::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < KS; ++dp) {
+      for (int dp = 0; dp < KV; ++dp) {
         uint32_t vb[4];
         attn::ldmatrix_x4_trans(
-            vb, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD
+            vb, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDV
                     + dp * 16 + (lane / 16) * 8);
         attn::mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
         attn::mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
@@ -445,11 +462,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(static_cast<long long>(b) * hq + h) * ldl + row_a + hr * 8] =
           (m[hr] + log2f(t)) * LN2;
   }
-  bf16* ow = qs + warp * 16 * LD;
+  bf16* ow = qs + warp * 16 * LD;     // Dv <= D: an o row fits a q row
 #pragma unroll
-  for (int n = 0; n < 2 * KS; ++n) {
+  for (int n = 0; n < 2 * KV; ++n) {
     const int col = n * 8 + 2 * (lane % 4);
-    if (n * 8 < d) {
+    if (n * 8 < dv) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
         *reinterpret_cast<uint32_t*>(ow + (lane / 4 + hr * 8) * LD + col) =
@@ -458,8 +475,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncwarp();
-  for (int e = lane; e < 16 * chunks; e += 32) {
-    const int r = e / chunks, c = e % chunks;
+  for (int e = lane; e < 16 * chunks_v; e += 32) {
+    const int r = e / chunks_v, c = e % chunks_v;
     const int qpos = q0 + warp * 16 + r;
     if (qpos < sq)
       *reinterpret_cast<uint4*>(op + qpos * st.os + c * 8) =
@@ -467,37 +484,45 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int KS>
+template <int KS, int KV = KS>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, const Strides& st, int b, int hq, int hkv, int sq,
-               int sk, int d, int ldl, int causal, int window, float scale,
-               cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes(KS);
+               int sk, int d, int dv, int ldl, int causal, int window,
+               float scale, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes(KS, KV);
   static attn::SmemLimit limit;
-  const cudaError_t err =
-      limit.allow(reinterpret_cast<const void*>(flash_mma_kernel<KS>), smem);
+  const cudaError_t err = limit.allow(
+      reinterpret_cast<const void*>(flash_mma_kernel<KS, KV>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
-  flash_mma_kernel<KS><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_mma_kernel<KS, KV><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, st, hq, hkv,
-      sq, sk, d, ldl, causal, window, scale * LOG2E);
+      sq, sk, d, dv, ldl, causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define FLASH_ARGS \
-  q, k, v, o, st, b, hq, hkv, sq, sk, d, causal, window, scale, s
+  q, k, v, o, st, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s
 #define MMA_ARGS \
-  q, k, v, o, lse, st, b, hq, hkv, sq, sk, d, ldl, causal, window, scale, s
+  q, k, v, o, lse, st, b, hq, hkv, sq, sk, d, dv, ldl, causal, window, \
+      scale, s
 
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int b, int hq, int hkv, int sq, int sk, int d,
-           int ldl, int causal, int window, float scale, int bf16_in,
+           int dv, int ldl, int causal, int window, float scale, int bf16_in,
            cudaStream_t s) {
   const int groups = (d + 15) / 16;
+  if (dv < 1 || dv > d) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16_in) {
-    if (d % 8 || (lse != nullptr && ldl < (sq + BQ - 1) / BQ * BQ))
+    if (d % 8 || dv % 8 || (lse != nullptr && ldl < (sq + BQ - 1) / BQ * BQ))
       return static_cast<int>(cudaErrorInvalidValue);
+    if (dv != d) {
+      // latent attention's q.k 192 (128 + 64 rope), values 128
+      if (groups == 12 && (dv + 15) / 16 == 8)
+        return launch_mma<12, 8>(MMA_ARGS);
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     switch (groups) {
       case 1: return launch_mma<1>(MMA_ARGS);
       case 2: return launch_mma<2>(MMA_ARGS);
@@ -513,7 +538,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     }
   }
   if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  switch (groups) {
+  switch ((dv + 15) / 16) {
     case 1: return launch_fma<1>(FLASH_ARGS);
     case 2: return launch_fma<2>(FLASH_ARGS);
     case 3: return launch_fma<3>(FLASH_ARGS);
@@ -534,7 +559,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) for q, k, v, o in
-// that order. window <= 0: no window. scale: the score scale (D^-0.5,
+// that order. d: q's and k's head dim; dv: v's and o's (d, or less: see
+// the top of the file). window <= 0: no window. scale: the score scale (D^-0.5,
 // as the caller computes it). bf16: 0 for float32 inputs and output, 1 for
 // bfloat16 (then D % 8 == 0 and every pointer and stride 16-byte aligned,
 // which the wrapper checks). lse: null, or (bf16 only) a float32 [b, hq,
@@ -544,12 +570,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
                                int b, int hq, int hkv, int sq, int sk, int d,
-                               int ldl, int causal, int window, float scale,
-                               int bf16, void* stream) {
+                               int dv, int ldl, int causal, int window,
+                               float scale, int bf16, void* stream) {
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
   return launch(q, k, v, o, static_cast<float*>(lse), st, b, hq, hkv, sq, sk,
-                d, ldl, causal, window, scale, bf16,
+                d, dv, ldl, causal, window, scale, bf16,
                 static_cast<cudaStream_t>(stream));
 }

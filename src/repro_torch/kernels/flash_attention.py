@@ -10,6 +10,13 @@ bfloat16 runs on the tensor cores (``mma.sync`` with ``cp.async``-staged
 K/V tiles); float32 runs on f32 FMA, which keeps full f32 precision. Any head dim up
 to 256 (gemma-2b's and recurrentgemma-9b's) is taken.
 
+The values may be narrower than q and k (``Dv < D``, latent attention's
+q·k over 128 + 64 rope columns against values 128 wide): the output then
+has v's width. float32 takes any ``Dv <= D``; bfloat16 has an instance for
+D 192 with Dv 128 (``V_WIDTHS``), forward and backward, whose value
+products run at Dv rather than at D, and raises ``ValueError`` for any
+other pair.
+
 The bfloat16 instance copies 16-byte chunks, so it needs D % 8 == 0 and
 every pointer and (batch, head, position) stride 16-byte aligned; the
 model's layouts always are, and anything else raises ``ValueError``.
@@ -65,29 +72,34 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.tracing import span
 
 MAX_HEAD_DIM = 256
+# (D, Dv) pairs with Dv < D that the bfloat16 kernels take
+V_WIDTHS = frozenset({(192, 128)})
 _GRID_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 BACKWARD_SCORES = 1 << 28       # float32 scores a backward chunk recomputes
 _KERNEL = _build.Kernel("flash_attention", "flash_attention",
                         [ctypes.c_void_p] * 5
                         + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int])
+                        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int])
 _BACKWARD = _build.Kernel("flash_attention_backward",
                           "flash_attention_backward",
                           [ctypes.c_void_p] * 11
                           + [ctypes.POINTER(ctypes.c_longlong)]
-                          + [ctypes.c_int] * 9 + [ctypes.c_float],
+                          + [ctypes.c_int] * 10 + [ctypes.c_float],
                           counter="backward_launch_count")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
     """What the kernel takes; the plain version is held to the same."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or not 0 < v.shape[3] <= k.shape[3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
-                         "[B, Hq, Sq, D] and two [B, Hkv, Sk, D]")
+                         "[B, Hq, Sq, D], [B, Hkv, Sk, D] and "
+                         "[B, Hkv, Sk, Dv], Dv <= D")
     B, Hq, _, D = q.shape
+    Dv = v.shape[3]
     Hkv, Sk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
@@ -111,16 +123,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} exceeds "
                          "the kernel's grid")
     if q.dtype == torch.bfloat16:
-        _build.check_aligned("flash_attention", D, q, k, v)
+        if Dv != D and (D, Dv) not in V_WIDTHS:
+            raise ValueError(f"flash_attention: bfloat16 q.k width {D} with "
+                             f"values {Dv} wide: the kernels take Dv = D or "
+                             f"(D, Dv) in {sorted(V_WIDTHS)}")
+        _build.check_aligned("flash_attention", D, q, k)
+        _build.check_aligned("flash_attention", Dv, v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D] in q's
-    dtype and memory layout. Mask: ``kpos <= qpos`` if ``causal``,
-    ``kpos > qpos - window`` if ``window``; scale ``D ** -0.5``.
-    Differentiable (see the module docstring)."""
+    """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv], Dv <= D
+    -> [B, Hq, Sq, Dv] in q's dtype and memory layout. Mask: ``kpos <=
+    qpos`` if ``causal``, ``kpos > qpos - window`` if ``window``; scale
+    ``D ** -0.5``. Differentiable (see the module docstring)."""
     _check(q, k, v, window)
     if _build.records_grad(q, k, v):
         return FlashAttentionFunction.apply(q, k, v, causal, window)
@@ -225,8 +242,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     each query row's log of its softmax sum, the rows past Sq those of the
     zero-padded tile."""
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    # q's layout at v's width (a view of q is not dense where Dv < D, so
+    # empty_like keeps the order of q's dims)
+    o = torch.empty_like(q[..., :Dv])
     ldl = -(-Sq // 64) * 64
     lse = (torch.empty((B, Hq, ldl), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -236,7 +255,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _KERNEL.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), o.data_ptr(),
                        None if lse is None else lse.data_ptr(), strides, B,
-                       Hq, Hkv, Sq, Sk, D, ldl, int(bool(causal)),
+                       Hq, Hkv, Sq, Sk, D, Dv, ldl, int(bool(causal)),
                        int(window or 0), float(D ** -0.5),
                        int(q.dtype == torch.bfloat16),
                        what=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)} "
@@ -250,7 +269,7 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool,
     output ``o`` and ``lse`` (:func:`_launch`), and an aligned ``do``
     -> (dq, dk, dv) in q's, k's and v's layouts."""
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -262,7 +281,8 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool,
                      v.data_ptr(), o.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B,
-                     Hq, Hkv, Sq, Sk, D, lse.shape[-1], int(bool(causal)),
+                     Hq, Hkv, Sq, Sk, D, Dv, lse.shape[-1],
+                     int(bool(causal)),
                      int(window or 0), float(D ** -0.5),
                      what=lambda: f"backward q {tuple(q.shape)}, k "
                                   f"{tuple(k.shape)}")

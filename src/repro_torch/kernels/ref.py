@@ -31,7 +31,8 @@ def _band(Sq: int, Sk: int, causal: bool, window: Optional[int],
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0, return_lse: bool = False):
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. Key
+    """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv] ->
+    [B, Hq, Sq, Dv]; the scale is ``D ** -0.5``. Key
     positions start at 0, query positions at ``q_offset`` (0 is the
     kernel's function; a chunk of query rows passes its first row's
     position); GQA maps q head h to kv head ``h // (Hq // Hkv)``. With
@@ -47,7 +48,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    o = o.reshape(B, Hq, Sq, D).to(q.dtype)
+    o = o.reshape(B, Hq, Sq, v.shape[3]).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
     return o
@@ -63,19 +64,20 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
     forward's ``lse`` [B, Hq, Sq], ``P = exp(s - lse)`` in the band and 0
     outside, ``delta = rowsum(do o)``, ``dS = P (do v^T - delta)``, ``dv =
     P^T do``, ``dk = dS^T q D^-0.5``, ``dq = dS k D^-0.5``, the G q heads of
-    a kv head summed into its dk and dv. Math in float32; each gradient in
-    its input's dtype."""
+    a kv head summed into its dk and dv. v, o and do may be ``Dv`` wide
+    where q and k are D. Math in float32; each gradient in its input's
+    dtype."""
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     f32, scale = torch.float32, D ** -0.5
     qf = q.reshape(B, Hkv, G, Sq, D).to(f32)
-    gf = do.reshape(B, Hkv, G, Sq, D).to(f32)
+    gf = do.reshape(B, Hkv, G, Sq, Dv).to(f32)
     kf, vf = k.to(f32), v.to(f32)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf * scale, kf)
     p = torch.where(_band(Sq, Sk, causal, window, 0, q.device),
                     torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1)), 0.0)
-    delta = (gf * o.reshape(B, Hkv, G, Sq, D).to(f32)).sum(-1, keepdim=True)
+    delta = (gf * o.reshape(B, Hkv, G, Sq, Dv).to(f32)).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bkgqd,bksd->bkgqs", gf, vf) - delta)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, gf)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale

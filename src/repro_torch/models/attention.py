@@ -106,7 +106,8 @@ def _softcap(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
 def naive_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Reference attention; q: [B,Sq,Hq,D], k/v: [B,Sk,Hkv,D]."""
+    """Reference attention; q: [B,Sq,Hq,D], k: [B,Sk,Hkv,D], v:
+    [B,Sk,Hkv,Dv] (Dv may be less than D: latent attention)."""
     B, Sq, Hq, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = Hq // K
@@ -124,7 +125,7 @@ def naive_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
@@ -134,10 +135,11 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     """Flash-style online-softmax attention, FLOP-exact for causal/windowed.
 
     Python loop over Q chunks; each runs a loop over exactly the KV chunks
-    it can see. Memory per step: [B, K, G, q_chunk, kv_chunk].
+    it can see. Memory per step: [B, K, G, q_chunk, kv_chunk]. v may be
+    narrower than q and k (Dv, the output's width).
     """
     B, S, Hq, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // K
     if S % q_chunk:  # adapt chunks to ragged lengths
         q_chunk = _largest_divisor(S, q_chunk)
@@ -157,7 +159,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     BK, rows = B * K, G * q_chunk
     qc = q.reshape(B, nq, q_chunk, K, G, D)
     kt = k.to(torch.float32).permute(0, 2, 3, 1).reshape(BK, D, Sk)
-    vt = v.to(torch.float32).permute(0, 2, 1, 3).reshape(BK, Sk, D)
+    vt = v.to(torch.float32).permute(0, 2, 1, 3).reshape(BK, Sk, Dv)
 
     outs = []
     for i in range(nq):
@@ -171,7 +173,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
         m = torch.full((BK, rows, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((BK, rows, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((BK, rows, D), dtype=torch.float32,
+        acc = torch.zeros((BK, rows, Dv), dtype=torch.float32,
                           device=q.device)
         qpos = q_lo + torch.arange(q_chunk, device=q.device)
         for j in range(j_lo, j_hi + 1):
@@ -196,9 +198,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
             acc = acc * corr + torch.bmm(p, vt[:, k_lo:k_hi])
             m = m_new
         out_i = acc / torch.clamp(l, min=1e-30)
-        outs.append(out_i.reshape(B, K, G, q_chunk, D).permute(
-            0, 3, 1, 2, 4))                                   # [B,Cq,K,G,D]
-    out = torch.cat(outs, dim=1).reshape(B, S, Hq, D)
+        outs.append(out_i.reshape(B, K, G, q_chunk, Dv).permute(
+            0, 3, 1, 2, 4))                                   # [B,Cq,K,G,Dv]
+    out = torch.cat(outs, dim=1).reshape(B, S, Hq, Dv)
     return out.to(q.dtype)
 
 

@@ -31,6 +31,24 @@ global means, which is what the reference's ``pmean`` of ``frac`` and
 capacity, so its token drops can differ from the single-device call.
 ``set_moe_bf16_collectives(True)`` rounds the combine and the expert
 weights' gradients (:func:`bf16_grad`) through bfloat16.
+
+DeepSeek-V3-style routing (Moonlight) is set by ``MoEConfig``: sigmoid
+scores (``scoring``), a fixed ``selection_bias`` added for the choice of
+the top-k only, the chosen unbiased scores renormalised and scaled by
+``routed_scaling``; ``num_shared_experts`` SwiGLU experts of
+``d_ff_expert`` each run on every token as one SwiGLU (``"shared"``) added
+to the routed result. A chip's share of an expert-parallel layer without
+a mesh: ``expert_shards`` chips divide the layer's experts, the router
+scores all ``num_experts * expert_shards`` of them, this one holds the
+first ``num_experts`` and computes their copies only, under the capacity
+of the whole layer (``_ragged`` / ``_batched`` at ``ep = expert_shards``,
+rank 0); what the other chips would add is not computed here.
+
+Spans (:mod:`repro_torch.tracing`): ``moe.route`` (scores, choice,
+gates), ``moe.experts`` (the held experts' gather, products and combine)
+and ``moe.shared``; while a profiler records, ``_batched`` counts the
+copies routed to the held experts (``moe.routed``) and those its capacity
+dropped (``moe.dropped``).
 """
 from __future__ import annotations
 
@@ -42,15 +60,16 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.distributed.sharding import (PartitionSpec, axis_size,
                                               shard_map, spec_placements)
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import dtype_of, mlp_apply, mlp_specs
 from repro_torch.models.spec import P
+from repro_torch.tracing import count, recording, span
 
 
 def moe_specs(cfg) -> dict:
     m = cfg.moe
     d, f = cfg.d_model, m.d_ff_expert
-    return {
-        "router": P((d, m.num_experts), ("embed", None), init="small"),
+    s = {
+        "router": P((d, m.routed_experts), ("embed", None), init="small"),
         "wi": P((m.num_experts, d, f),
                 ("experts", "expert_embed", "expert_mlp"), fan_in=d),
         "wg": P((m.num_experts, d, f),
@@ -58,6 +77,9 @@ def moe_specs(cfg) -> dict:
         "wo": P((m.num_experts, f, d),
                 ("experts", "expert_mlp", "expert_embed"), fan_in=f),
     }
+    if m.num_shared_experts:
+        s["shared"] = mlp_specs(d, m.num_shared_experts * f)
+    return s
 
 
 def _act(cfg, g: torch.Tensor) -> torch.Tensor:
@@ -92,19 +114,44 @@ def set_moe_bf16_collectives(flag: bool) -> None:
     _BF16_COLLECTIVES = flag
 
 
+# the selection bias as a tensor, by (values, device)
+_BIAS: dict = {}
+
+
+def _bias(m, device) -> torch.Tensor:
+    key = (m.selection_bias, str(device))
+    if key not in _BIAS:
+        _BIAS[key] = torch.tensor(m.selection_bias, dtype=torch.float32,
+                                  device=device)
+    return _BIAS[key]
+
+
 def _route(cfg, router_w: torch.Tensor, x2d: torch.Tensor):
-    """x2d: [T, D] -> (probs [T,E] f32, gate [T,k], idx [T,k], aux). On
-    DTensors the token means are over every rank's tokens."""
+    """x2d: [T, D] -> (probs [T,E] f32, gate [T,k], idx [T,k], aux) over
+    the ``routed_experts`` the router scores. The choice is the top-k of
+    the scores plus the selection bias; the gates are the chosen scores
+    renormalised, times ``routed_scaling``. On DTensors the token means
+    are over every rank's tokens."""
     m = cfg.moe
-    logits = torch.matmul(x2d.to(torch.float32), router_w.to(torch.float32))
-    probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, m.top_k, dim=-1)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    E = m.num_experts
-    hard = torch.zeros_like(probs).scatter(1, idx, 1.0)
-    frac = hard.mean(0) / m.top_k
-    pbar = probs.mean(0)
-    aux = E * torch.sum(frac * pbar)
+    with span("moe.route"):
+        logits = torch.matmul(x2d.to(torch.float32),
+                              router_w.to(torch.float32))
+        probs = (torch.sigmoid(logits) if m.scoring == "sigmoid"
+                 else torch.softmax(logits, dim=-1))
+        if m.selection_bias:
+            _, idx = torch.topk(probs + _bias(m, probs.device), m.top_k,
+                                dim=-1)
+            gate = probs.gather(1, idx)
+        else:
+            gate, idx = torch.topk(probs, m.top_k, dim=-1)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        if m.routed_scaling != 1.0:
+            gate = gate * m.routed_scaling
+        E = m.routed_experts
+        hard = torch.zeros_like(probs).scatter(1, idx, 1.0)
+        frac = hard.mean(0) / m.top_k
+        pbar = probs.mean(0)
+        aux = E * torch.sum(frac * pbar)
     return probs, gate, idx, aux
 
 
@@ -201,6 +248,10 @@ def _batched(cfg, x2, gate, idx, wi, wg, wo, ep: int = 1, rank: int = 0):
     flat_id, flat_gate = _own(idx, gate, E, rank)              # [T*k]
     order = torch.argsort(flat_id, stable=True)
     counts = _expert_counts(flat_id, E)
+    if recording():
+        routed = counts.sum()
+        count("moe.routed", routed)
+        count("moe.dropped", routed - counts.clamp(max=cap_e).sum())
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])[:-1]
     n_slots = E * cap_e
     slot = torch.arange(n_slots, device=x2.device)
@@ -208,30 +259,38 @@ def _batched(cfg, x2, gate, idx, wi, wg, wo, ep: int = 1, rank: int = 0):
     valid = pos < counts[e_idx]
     src = torch.where(valid, starts[e_idx] + pos, torch.zeros_like(pos))
     copy_idx = order[src]                                       # [slots]
-    tok_slot = torch.where(valid, copy_idx // k, torch.full_like(pos, T))
+    # an empty slot reads (as zeros) and adds (zeros) at a row of its own,
+    # slot % T: sent to one shared row, the empty slots' atomic adds in the
+    # combine and in the gather's backward all land on that row in turn
+    tok_slot = torch.where(valid, copy_idx // k, slot % T)
     gate_slot = torch.where(valid, flat_gate[copy_idx],
                             torch.zeros((), dtype=flat_gate.dtype,
                                         device=x2.device))
 
-    x2p = torch.cat([x2.to(dt), x2.new_zeros((1, D), dtype=dt)], dim=0)
-    xs = x2p[tok_slot].reshape(E, cap_e, D)
+    xs = torch.where(valid[:, None], x2.to(dt)[tok_slot],
+                     torch.zeros((), dtype=dt, device=x2.device))
+    xs = xs.reshape(E, cap_e, D)
     h = torch.bmm(xs, wi.to(dt))
     g = torch.bmm(xs, wg.to(dt))
     h = _act(cfg, g.to(torch.float32)).to(dt) * h
     y_e = torch.bmm(h, wo.to(dt))                               # [E,cap,D]
 
-    y = torch.zeros((T + 1, D), dtype=torch.float32, device=x2.device)
-    y = y.index_add(0, tok_slot, y_e.reshape(-1, D).to(torch.float32)
-                    * gate_slot[:, None].to(torch.float32))
-    return y[:T]
+    y = torch.zeros((T, D), dtype=torch.float32, device=x2.device)
+    return y.index_add(0, tok_slot, y_e.reshape(-1, D).to(torch.float32)
+                       * gate_slot[:, None].to(torch.float32))
 
 
 def _single_device(cfg, p: dict, x: torch.Tensor, combine):
+    """One device's share of the layer: all of it, or with
+    ``expert_shards`` its held experts' part."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     _, gate, idx, aux = _route(cfg, p["router"], x2)
-    y = combine(cfg, x2, gate, idx, p["wi"], p["wg"], p["wo"])
-    return y.to(dtype_of(cfg)).reshape(shape), aux
+    with span("moe.experts"):
+        y = combine(cfg, x2, gate, idx, p["wi"], p["wg"], p["wo"],
+                    ep=cfg.moe.expert_shards)
+        y = y.to(dtype_of(cfg)).reshape(shape)
+    return y, aux
 
 
 def moe_ragged_local(cfg, p: dict, x: torch.Tensor):
@@ -322,7 +381,16 @@ def moe_apply(cfg, p: dict, x: torch.Tensor, *, mesh=None,
     """Dispatch on impl and mesh. x: [B, S, D]. With a mesh that has
     ``ep_axis`` (a ``DeviceMesh``), ``ragged`` and ``batched`` run expert
     parallel (see the module docstring); ``dense`` runs on DTensors as
-    they are placed."""
+    they are placed. The shared experts, where the config has them, are
+    added after."""
+    y, aux = _routed(cfg, p, x, mesh, ep_axis, fsdp_axes)
+    if "shared" in p:
+        with span("moe.shared"):
+            y = y + mlp_apply(cfg, p["shared"], x)
+    return y, aux
+
+
+def _routed(cfg, p: dict, x: torch.Tensor, mesh, ep_axis: str, fsdp_axes):
     local = _LOCAL_IMPLS.get(cfg.moe.impl, moe_ragged_local)
     names = None if mesh is None else getattr(mesh, "mesh_dim_names", None)
     if mesh is not None and names is None:

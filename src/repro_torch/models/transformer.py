@@ -27,6 +27,14 @@ reference's flat layer order (cycle0.slot0, cycle0.slot1, cycle1.slot0,
 plain PyTorch version on any device, which ``chip_smoke.py`` holds the
 kernel route against on the card.
 
+A config with ``first_dense_layers`` (DeepSeek-V3, Moonlight) starts
+with that many layers whose MLP is dense (``d_ff``), stacked apart under
+``"dense_layers"``, before the ``"layers"`` stack of MoE blocks; each
+layer is a remat unit, and the cache slots count them in that order. A
+config with ``mla`` runs latent attention (:mod:`repro_torch.models.mla`)
+in every attention layer; it trains but does not serve: ``prefill``,
+``decode_step`` and ``init_cache`` raise.
+
 On a device mesh the params are DTensors placed by :meth:`LM.param_axes`
 (``repro_torch.distributed.sharding.shard_params``) and the forward runs
 under ``axis_rules(rules, mesh=mesh)``: plain ops propagate the
@@ -50,7 +58,7 @@ from repro_torch.distributed.sharding import (carry_rules, current_mesh,
                                               current_rules, lshard)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, moe, rglru
+from repro_torch.models import mamba2, mla, moe, rglru
 from repro_torch.models.spec import (abstract_params, axes_tree, init_params,
                                      stack_tree)
 
@@ -143,13 +151,16 @@ class LM:
     # ------------------------------------------------------------------
     # Parameter specs
     # ------------------------------------------------------------------
-    def _block_specs(self, kind: str) -> dict:
+    def _block_specs(self, kind: str, dense: bool = False) -> dict:
+        """A block's specs; ``dense``: an attention block's MLP is dense
+        whatever the config's MoE (a leading dense layer)."""
         cfg = self.cfg
         s: Dict[str, Any] = {"norm1": L.norm_spec(cfg, cfg.d_model)}
         if kind == "attn":
-            s["attn"] = attn.attn_specs(cfg)
+            s["attn"] = (mla.mla_specs(cfg) if cfg.mla
+                         else attn.attn_specs(cfg))
             s["norm2"] = L.norm_spec(cfg, cfg.d_model)
-            if cfg.is_moe:
+            if cfg.is_moe and not dense:
                 s["moe"] = moe.moe_specs(cfg)
             else:
                 s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
@@ -175,8 +186,12 @@ class LM:
             for i in range(rest):
                 out[f"rest{i}"] = self._block_specs(pat[i])
         else:
+            n = cfg.first_dense_layers
+            if n:
+                out["dense_layers"] = stack_tree(
+                    self._block_specs(self.kinds[0], dense=True), n)
             out["layers"] = stack_tree(self._block_specs(self.kinds[0]),
-                                       cfg.num_layers)
+                                       cfg.num_layers - n)
         return out
 
     def init(self, gen: torch.Generator, device=None):
@@ -197,8 +212,11 @@ class LM:
         cycle through the pattern's slots, then the remainder."""
         cfg = self.cfg
         if not cfg.block_pattern:
-            return [(self.kinds[0], layer_params(params["layers"], i))
-                    for i in range(cfg.num_layers)]
+            n = cfg.first_dense_layers
+            return [(self.kinds[0], layer_params(params["dense_layers"], i))
+                    for i in range(n)] + [
+                (self.kinds[0], layer_params(params["layers"], i))
+                for i in range(cfg.num_layers - n)]
         pat = cfg.block_pattern
         nc = cfg.num_layers // len(pat)
         out = [(k, layer_params(params["cycles"][f"slot{i}"], c))
@@ -248,14 +266,19 @@ class LM:
         cache = None
         h = self._norm(x, p["norm1"])
         if kind == "attn":
-            o, cache = attn.attn_apply(cfg, p["attn"], h, positions=positions,
-                                       causal=True, window=self._attn_window(),
-                                       impl=self.attn_impl,
-                                       kv_for_cache=collect_cache,
-                                       use_kernels=self.use_kernels)
+            if cfg.mla:
+                o = mla.mla_apply(cfg, p["attn"], h, positions=positions,
+                                  window=self._attn_window(),
+                                  impl=self.attn_impl,
+                                  use_kernels=self.use_kernels)
+            else:
+                o, cache = attn.attn_apply(
+                    cfg, p["attn"], h, positions=positions, causal=True,
+                    window=self._attn_window(), impl=self.attn_impl,
+                    kv_for_cache=collect_cache, use_kernels=self.use_kernels)
             x = x + _residual(_scaled(o, cfg.residual_multiplier))
             h2 = self._norm(x, p["norm2"])
-            if cfg.is_moe:
+            if "moe" in p:
                 o2, a = moe.moe_apply(cfg, p["moe"], h2, mesh=current_mesh())
                 aux = aux + a
             else:
@@ -327,7 +350,7 @@ class LM:
     def loss(self, params, batch: Dict[str, torch.Tensor]):
         """Next-token cross entropy over ``batch["tokens"]`` [B, S] (and an
         optional ``"mask"``), plus the MoE load-balance term
-        ``router_aux_coef * aux / attention layers``. As the reference, the
+        ``router_aux_coef * aux / MoE layers``. As the reference, the
         model runs the full sequence and the last position's logits are
         dropped. Returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
@@ -337,7 +360,8 @@ class LM:
         ce = L.cross_entropy(logits[:, :-1], tokens[:, 1:],
                              None if mask is None else mask[:, 1:])
         coef = cfg.moe.router_aux_coef if cfg.is_moe else 0.0
-        nl = max(1, sum(1 for k in self.kinds if k == "attn"))
+        nl = max(1, sum(1 for k in self.kinds if k == "attn")
+                 - cfg.first_dense_layers)
         return ce + coef * aux / nl, {"ce": ce, "aux": aux / nl}
 
     # ------------------------------------------------------------------
@@ -355,7 +379,12 @@ class LM:
             c[k] = c.get(k, 0) + 1
         return c
 
+    def _serves(self) -> None:
+        if self.cfg.mla:
+            raise NotImplementedError(mla.UNSUPPORTED)
+
     def init_cache(self, batch: int, max_len: int, device=None) -> DecodeState:
+        self._serves()
         cfg = self.cfg
         counts = self._counts()
         dt = L.dtype_of(cfg)
@@ -403,6 +432,7 @@ class LM:
         slot = pos % W, whatever ``max_len`` is, as in the reference), else
         ``max(max_len, S)`` slots; the recurrent stacks hold each layer's
         last conv window and state."""
+        self._serves()
         cfg = self.cfg
         B, S = tokens.shape
         max_len = max_len or S
@@ -485,6 +515,7 @@ class LM:
         (the state placed by :meth:`cache_axes`): attention runs on each
         rank's slice of the cache, the recurrent layers on its batch
         rows."""
+        self._serves()
         cfg = self.cfg
         x = L.embed_tokens(cfg, params["embed"], tokens)
         index = state.index
@@ -503,7 +534,7 @@ class LM:
                                            use_kernels=self.use_kernels)
                 x = x + _scaled(o, cfg.residual_multiplier)
                 h2 = self._norm(x, p["norm2"])
-                if cfg.is_moe:
+                if "moe" in p:
                     o2, _ = moe.moe_apply(cfg, p["moe"], h2,
                                           mesh=current_mesh())
                 else:

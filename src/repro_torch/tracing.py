@@ -25,6 +25,13 @@ that thread has none, the innermost span open that was given a ``step``
 thread of its own, and this puts a kernel's backward span under the
 ``train.backward`` that waits for it. ``step`` and ``micro`` default to
 the parent's.
+
+Counters go the same way: ``count("moe.dropped", n)`` keeps the device
+scalar ``n`` with the host time while a profiler records, and does nothing
+otherwise; the caller asks
+:func:`recording` before it computes ``n``, so an unprofiled run pays
+neither the arithmetic nor a host sync. :func:`counts` lists them, each
+read (``Count.value``, a sync) only when asked.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import contextlib
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -41,6 +48,21 @@ from torch._C._profiler import _RecordFunctionFast
 
 PREFIX = "repro_torch/"
 KEEP = 1 << 16
+
+
+@dataclass
+class Count:
+    """A counted amount: ``name``, the host time it was counted at, and
+    ``value``, read from the device when first asked."""
+    name: str
+    t: float
+    _value: Union[torch.Tensor, float]
+
+    @property
+    def value(self) -> float:
+        if isinstance(self._value, torch.Tensor):
+            self._value = float(self._value)
+        return self._value
 
 
 @dataclass
@@ -74,6 +96,7 @@ class Store:
 
     def __init__(self, keep: int = KEEP):
         self.done: collections.deque = collections.deque(maxlen=keep)
+        self.counted: collections.deque = collections.deque(maxlen=keep)
         self.local = threading.local()
         self.phase: Optional["_Open"] = None
 
@@ -142,3 +165,23 @@ def span(name: str, step: Optional[int] = None, micro: Optional[int] = None):
 def spans() -> List[Span]:
     """The finished spans, oldest first."""
     return list(STORE.done)
+
+
+def recording() -> bool:
+    """Whether a profiler records, and so spans and counts are kept."""
+    return bool(_profiler._is_profiler_enabled)
+
+
+def count(name: str, value: Union[torch.Tensor, float]) -> None:
+    """Keep ``value`` under ``name`` while a profiler records (see the
+    module docstring); else nothing."""
+    if not _profiler._is_profiler_enabled:
+        return
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+    STORE.counted.append(Count(name, time.perf_counter(), value))
+
+
+def counts() -> List[Count]:
+    """The counts kept, oldest first."""
+    return list(STORE.counted)

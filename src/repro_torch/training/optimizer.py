@@ -6,11 +6,19 @@ all on the params' device. Params and state are nested dicts of tensors;
 :func:`tree_map` and :func:`tree_leaves` walk them in sorted key order, as
 ``jax.tree`` walks a dict.
 
-:func:`apply_updates` runs under ``torch.no_grad()`` and returns new
-params and a new state, as the reference does (nothing is updated in
-place). Its per-leaf arithmetic is the reference's ``upd`` in the same
-order, in float32; the schedule and the bias corrections are float32
-tensors on the device, as in the reference.
+:func:`apply_updates` runs under ``torch.no_grad()``. It returns new
+param tensors (a caller may keep the old ones, as the benchmark keeps the
+first step's to measure the change) and a new state whose moments are the
+old state's tensors updated in place, where the reference returns new
+ones: an update that made new moments beside the old ones and the float32
+gradients held about 24 bytes a parameter at once, which a model of
+billions of parameters on one card cannot spare. Each leaf is updated in
+slices along its first dim (``UPDATE_ELEMENTS`` at most a slice, where its
+rows allow), so its float32 temporaries are a slice's. Its arithmetic is
+the reference's ``upd`` in the same order, in float32; the schedule and
+the bias corrections are float32 tensors on the device, as in the
+reference. DTensor leaves (a device mesh) are updated whole into new
+tensors, as the reference does.
 
 On a device mesh the params are DTensors and so is the state: each moment
 takes its param's placements (:func:`init_state`, :func:`state_axes`), so
@@ -28,6 +36,10 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.spec import DTYPES
+
+# elements of a leaf that one slice of the AdamW update takes (at least one
+# row along the first dim): 256 MiB of each float32 temporary
+UPDATE_ELEMENTS = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -132,8 +144,9 @@ def apply_updates(cfg: OptimizerConfig, params, grads,
                   state: AdamWState) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step: clip, bias-corrected moments, decoupled weight decay
     on params with ``ndim >= 2`` only. Returns (new params in each param's
-    dtype, new state, {"grad_norm", "lr"}). Each leaf's gradient is
-    clipped as it is updated (no clipped copy of the whole tree)."""
+    dtype, the state with its moments updated in place and its step
+    advanced, {"grad_norm", "lr"}). Each leaf's gradient is clipped as it
+    is updated (no clipped copy of the whole tree)."""
     scale, gnorm = _clip_scale(grads, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
@@ -144,6 +157,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads,
     odt = DTYPES[cfg.opt_dtype]
 
     def upd(p, g, m, v):
+        """A DTensor leaf: new param, m and v, as the reference."""
         g = g.to(torch.float32) * scale
         m32 = b1 * m.to(torch.float32) + (1 - b1) * g
         v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g)
@@ -155,7 +169,37 @@ def apply_updates(cfg: OptimizerConfig, params, grads,
         new_p = p.to(torch.float32) - lr * delta
         return new_p.to(p.dtype), m32.to(odt), v32.to(odt)
 
-    out = tree_map(upd, params, grads, state.m, state.v)
+    def upd_slice(p, g, m, v, new, decay: bool):
+        """``upd`` on a slice, m and v in place, the new param into
+        ``new``: the same operations in the same order."""
+        g = g.to(torch.float32) * scale
+        if m.dtype == torch.float32:
+            m32 = m.mul_(b1).add_(g * (1 - b1))
+            v32 = v.mul_(b2).add_(torch.square(g) * (1 - b2))
+        else:               # stored rounded; the update takes the f32 ones
+            m32 = b1 * m.to(torch.float32) + (1 - b1) * g
+            v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g)
+            m.copy_(m32)
+            v.copy_(v32)
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        if decay:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        torch.sub(p.to(torch.float32), lr * delta, out=new)
+
+    def leaf(p, g, m, v):
+        if isinstance(p, DTensor):
+            return upd(p, g, m, v)
+        new = torch.empty_like(p)
+        if p.ndim == 0:
+            upd_slice(p, g, m, v, new, False)
+            return new, m, v
+        rows = max(1, UPDATE_ELEMENTS // max(p[0].numel(), 1))
+        for lo in range(0, p.shape[0], rows):
+            sl = slice(lo, lo + rows)
+            upd_slice(p[sl], g[sl], m[sl], v[sl], new[sl], p.ndim >= 2)
+        return new, m, v
+
+    out = tree_map(leaf, params, grads, state.m, state.v)
 
     def part(i):    # the i-th of each leaf's (p, m, v)
         return tree_map(lambda t: t[i], out)

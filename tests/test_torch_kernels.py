@@ -240,6 +240,49 @@ def test_flash_attention_ref_lse_is_logsumexp(B, Hq, Hkv, Sq, Sk, D, causal,
     torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
 
 
+def _einsum_attention(q, k, v, causal, window):
+    """Softmax attention in float32 by einsum: q, k [B, H, S, D], v
+    [B, H, S, Dv], the scale D^-0.5."""
+    S = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    band = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        band &= kpos <= qpos
+    if window is not None:
+        band &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~band, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+@pytest.mark.parametrize("B,H,S,causal,window", [
+    (2, 4, 70, True, None), (1, 2, 130, False, None), (1, 4, 100, True, 9)])
+def test_flash_attention_latent_widths_plain(B, H, S, causal, window):
+    """q.k 192 wide, values 128 (latent attention): the plain forward and
+    its backward (through ``FlashAttentionFunction``, and the backward
+    kernel's twin) against an f32 einsum and its autograd."""
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    q = torch.from_numpy(_normal((B, H, S, 192), 1))
+    k = torch.from_numpy(_normal((B, H, S, 192), 2))
+    v = torch.from_numpy(_normal((B, H, S, 128), 3))
+    do = torch.from_numpy(_normal((B, H, S, 128), 4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = _einsum_attention(*leaves, causal, window)
+    want_g = torch.autograd.grad(want, leaves, do)
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = flash_attention(*mine, causal=causal, window=window)
+    assert got.shape == (B, H, S, 128)
+    assert _err(got.detach().numpy(), want.detach().numpy()) < F32_TOL
+    o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    twin = flash_attention_backward_ref(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    for a, b, w in zip(torch.autograd.grad(got, mine, do), twin, want_g):
+        assert a.shape == w.shape and b.shape == w.shape
+        assert _err(a.numpy(), w.numpy()) < 1e-5
+        assert _err(b.numpy(), w.numpy()) < 1e-5
+
+
 DECODE_SHAPES = [(2, 8, 2, 512, 64), (1, 4, 4, 256, 32), (3, 16, 2, 384, 16),
                  (2, 4, 1, 100, 80)]
 

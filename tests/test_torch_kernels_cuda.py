@@ -696,6 +696,105 @@ def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
         _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
 
 
+def _latent_qkv(B, H, S, seed, dev, dtype):
+    """Latent attention's q, k [B, H, S, 192] and v [B, H, S, 128] in the
+    model's layout: q and k [B, S, H, 192] tensors, v the last 128 columns
+    of each head of the [B, S, H, 256] up-projection, all seen through
+    transpose(1, 2)."""
+    q = _randn((B, S, H, 192), seed, dev, dtype)
+    k = _randn((B, S, H, 192), seed + 1, dev, dtype)
+    kv = _randn((B, S, H, 256), seed + 2, dev, dtype)
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,causal,window", [
+    (1, 2, 37, True, None), (2, 4, 300, False, None), (1, 4, 200, True, 33),
+    (1, 16, 1024, True, None), (2, 16, 8192, True, None)])
+def test_cuda_flash_attention_latent_widths(cuda_device, dtype, B, H, S,
+                                            causal, window):
+    """q.k over 192 columns, values 128 wide (Moonlight's latent
+    attention), against the plain version, in the model's layout; the
+    output is 128 wide, in q's layout."""
+    q, k, v = _latent_qkv(B, H, S, 7, cuda_device, dtype)
+    before = flash_attention.launch_count
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launch_count == before + 1
+    assert got.shape == (B, H, S, 128) and got.transpose(1, 2).is_contiguous()
+    for h in range(H):
+        want = flash_attention_ref(q[:, h:h + 1], k[:, h:h + 1],
+                                   v[:, h:h + 1], causal=causal,
+                                   window=window)
+        _assert_close(got[:, h:h + 1], want, dtype, ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,causal,window", [
+    (1, 2, 37, True, None), (2, 4, 300, False, None), (1, 4, 200, True, 33),
+    (1, 16, 1024, True, None), (1, 4, 2048, True, None)])
+def test_cuda_flash_backward_latent_widths_match_twin(cuda_device, B, H, S,
+                                                      causal, window):
+    """The (192, 128) backward instance against its plain twin fed the
+    kernel's own o and lse, at the bound of the equal-width instances
+    (one bf16 ulp plus 1e-3 of the largest gradient); dv 128 wide in v's
+    layout."""
+    from repro_torch.kernels.flash_attention import _launch, _launch_backward
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    bf = torch.bfloat16
+    q, k, v = _latent_qkv(B, H, S, 11, cuda_device, bf)
+    do = _randn((B, H, S, 128), 14, cuda_device, bf)
+    o, lse = _launch(q, k, v, causal, window, with_lse=True)
+    assert torch.equal(o, _launch(q, k, v, causal, window))
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    torch.testing.assert_close(lse[..., :S], want_lse, rtol=0, atol=1e-4)
+    before = flash_attention.backward_launch_count
+    got = _launch_backward(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launch_count == before + 1
+    want = flash_attention_backward_ref(q, k, v, o, lse[..., :S], do,
+                                        causal=causal, window=window)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.shape == t.shape
+        _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_latent_grads_through_the_function(cuda_device):
+    """The (192, 128) pair through ``FlashAttentionFunction``: one forward
+    and one backward launch, gradients within the plain autograd's at the
+    bf16 bound of the grads test."""
+    bf = torch.bfloat16
+    q, k, v = _latent_qkv(1, 4, 500, 21, cuda_device, bf)
+    do = _randn((1, 4, 500, 128), 24, cuda_device, bf)
+    want = _plain_grads(lambda q, k, v: flash_attention_ref(q, k, v),
+                        (q, k, v), do)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launch_count,
+              flash_attention.backward_launch_count)
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launch_count - before[0],
+            flash_attention.backward_launch_count - before[1]) == (1, 1)
+    for a, b in zip(got, want):
+        _assert_close(a, b, bf, GRAD_TOL[bf] * max(
+            1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_other_value_widths(cuda_device):
+    q = _randn((1, 2, 64, 128), 1, cuda_device, torch.bfloat16)
+    v = _randn((1, 2, 64, 64), 2, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="values 64 wide"):
+        flash_attention(q, q, v)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, _randn((1, 2, 64, 136), 3, cuda_device,
+                                     torch.bfloat16))
+
+
 @pytest.mark.cuda
 def test_cuda_serving_kernels_refuse_an_input_that_requires_grad(
         cuda_device):

@@ -154,3 +154,67 @@ def test_global_norm_is_over_every_leaf():
     g = {"a": torch.ones(4), "b": {"c": torch.full((3,), 2.0)}}
     assert float(global_norm(g)) == pytest.approx(4.0)
     assert isinstance(init_state(g), AdamWState)
+
+
+def _whole_leaf_update(cfg, params, grads, state):
+    """The update before it went in place and in slices: each leaf whole,
+    new m and v."""
+    from repro_torch.training.optimizer import _clip_scale
+    scale, _ = _clip_scale(grads, cfg.grad_clip)
+    step = (state.step + 1).to(torch.float32)
+    lr = lr_schedule(cfg, state.step + 1)
+    bc1, bc2 = 1 - torch.pow(cfg.beta1, step), 1 - torch.pow(cfg.beta2, step)
+    out = {}
+    for k in params:
+        p, g = params[k], grads[k].to(torch.float32) * scale
+        m32 = cfg.beta1 * state.m[k].float() + (1 - cfg.beta1) * g
+        v32 = cfg.beta2 * state.v[k].float() + (1 - cfg.beta2) * g * g
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        if p.ndim >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        out[k] = ((p.float() - lr * delta).to(p.dtype),
+                  m32.to(state.m[k].dtype), v32.to(state.v[k].dtype))
+    return out
+
+
+@pytest.mark.parametrize("opt_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_bf16", [False, True])
+def test_sliced_in_place_update_matches_the_whole_leaf_one(
+        monkeypatch, opt_dtype, param_bf16):
+    """Slices of 6 rows' worth of elements: a [20, 3, 2] leaf takes four
+    slices, a [7] leaf and a scalar one. New params, m and v within 1 ulp
+    of f32 of the whole-leaf update; the params returned are new tensors
+    (a reference kept before the step keeps the old values), the moments
+    the state's own, updated in place."""
+    from repro_torch.training import optimizer
+    monkeypatch.setattr(optimizer, "UPDATE_ELEMENTS", 36)
+    cfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=2,
+                          total_steps=10, grad_clip=0.5, opt_dtype=opt_dtype)
+    g = torch.Generator().manual_seed(5)
+    pdt = torch.bfloat16 if param_bf16 else torch.float32
+    params = {"w": torch.randn((20, 3, 2), generator=g).to(pdt),
+              "b": torch.randn((7,), generator=g).to(pdt),
+              "s": torch.randn((), generator=g).to(pdt)}
+    state = init_state(params, opt_dtype)
+    for k in params:           # moments of earlier steps
+        state.m[k].copy_(torch.randn(params[k].shape, generator=g) * 0.1)
+        state.v[k].copy_(torch.rand(params[k].shape, generator=g) * 0.01)
+    state = AdamWState(torch.tensor(3, dtype=torch.int32), state.m, state.v)
+    grads = {k: torch.randn(p.shape, generator=g) for k, p in params.items()}
+    kept = {k: p.clone() for k, p in params.items()}
+    want = _whole_leaf_update(cfg, params, grads, AdamWState(
+        state.step, {k: t.clone() for k, t in state.m.items()},
+        {k: t.clone() for k, t in state.v.items()}))
+    m_before = dict(state.m)
+    got_p, got_s, _ = apply_updates(cfg, params, grads, state)
+    assert int(got_s.step) == 4
+    for k in params:
+        assert got_p[k] is not params[k] and torch.equal(params[k], kept[k])
+        assert got_s.m[k] is m_before[k]
+        for a, b in ((got_p[k], want[k][0]), (got_s.m[k], want[k][1]),
+                     (got_s.v[k], want[k][2])):
+            assert a.dtype == b.dtype
+            a32, b32 = a.float(), b.float()
+            ulp = torch.finfo(torch.float32).eps * b32.abs().clamp(
+                min=torch.finfo(torch.float32).tiny)
+            assert bool(((a32 - b32).abs() <= ulp).all()), k

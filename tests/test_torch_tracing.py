@@ -140,3 +140,35 @@ def test_a_train_step_nests_its_spans(store):
         "train.forward", "train.backward", "train.accumulate"] * 2 + [
         "train.update"]
     assert all(a.t1 <= b.t0 for a, b in zip(order, order[1:]))
+
+
+def test_counts_are_kept_only_while_a_profiler_records(store):
+    """Off, a count keeps nothing; on, it keeps the name, the time and the
+    value, read when asked. The batched MoE counts the copies routed
+    to its held experts and those its capacity dropped."""
+    import dataclasses
+    from repro_torch.models import moe
+    assert not tracing.recording()
+    tracing.count("a", torch.tensor(3))
+    assert tracing.counts() == []
+    cfg = smoke_config("olmoe-1b-7b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="batched",
+                                              capacity_factor=0.5))
+    p = moe.moe_specs(cfg)
+    from repro_torch.models.spec import init_params
+    p = init_params(p, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    with _profiled():
+        assert tracing.recording()
+        before = time.perf_counter()
+        tracing.count("a", torch.tensor(3))
+        moe.moe_apply(cfg, p, x)
+    a, routed, dropped = tracing.counts()
+    assert (a.name, a.value) == ("a", 3.0) and before <= a.t <= routed.t
+    assert routed.name == "moe.routed"
+    # 32 tokens x top-2 copies, all held; capacity 0.5 drops some
+    assert routed.value == 32 * cfg.moe.top_k
+    assert dropped.name == "moe.dropped" and 0 < dropped.value < routed.value
+    names = {s.name for s in tracing.spans()}
+    assert {"moe.route", "moe.experts"} <= names
