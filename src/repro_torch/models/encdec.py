@@ -6,9 +6,11 @@ the reference: the encoder takes precomputed frame embeddings
 self-attention, cross-attention over the encoder's output and a gated MLP.
 
 As in :mod:`repro_torch.models.transformer`, the reference's ``lax.scan``
-over the stacked ``[L, ...]`` params is a Python loop over
-:func:`~repro_torch.models.transformer.layer_params`, each layer wrapped
-in :func:`~repro_torch.models.transformer.remat` (a plain call unless
+over the stacked ``[L, ...]`` params is a Python loop over the layers that
+:func:`~repro_torch.models.transformer.unstack` cuts each stack into, once
+a forward and outside the remat units (one ``stack`` a leaf in the
+backward), each layer wrapped in
+:func:`~repro_torch.models.transformer.remat` (a plain call unless
 autograd records), and the param tree is the reference's, so
 :func:`repro_torch.convert.lm_params_from_numpy` carries it across.
 
@@ -38,7 +40,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.spec import (P, abstract_params, axes_tree,
                                      init_params, stack_tree)
-from repro_torch.models.transformer import layer_params, remat
+from repro_torch.models.transformer import remat, unstack
 
 
 @dataclass
@@ -147,9 +149,8 @@ class EncDecModel:
         x = torch.matmul(frames.to(dt), params["enc_proj"].to(dt))
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        for i in range(cfg.num_encoder_layers):
-            layer = functools.partial(
-                self._enc_layer, layer_params(params["enc_layers"], i))
+        for p in unstack(params["enc_layers"], cfg.num_encoder_layers):
+            layer = functools.partial(self._enc_layer, p)
             x = remat(cfg.remat_policy, layer, x, positions)
         return self._norm(x, params["enc_norm"])
 
@@ -184,9 +185,8 @@ class EncDecModel:
         B, S = tokens.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         caches = []
-        for i in range(cfg.num_layers):
-            layer = functools.partial(
-                self._dec_layer, layer_params(params["dec_layers"], i))
+        for p in unstack(params["dec_layers"], cfg.num_layers):
+            layer = functools.partial(self._dec_layer, p)
             x, kv, ckv = remat(cfg.remat_policy, layer, x, enc_out,
                                positions, collect)
             caches.append((kv, ckv))
@@ -265,8 +265,7 @@ class EncDecModel:
         index = state.index
         kv = state.self_kv
         S_enc = state.cross_k.shape[2]
-        for i in range(cfg.num_layers):
-            p = layer_params(params["dec_layers"], i)
+        for i, p in enumerate(unstack(params["dec_layers"], cfg.num_layers)):
             h = self._norm(x, p["norm1"])
             x = x + attn.attn_decode_apply(cfg, p["self_attn"], h, kv.k[i],
                                            kv.v[i], index,

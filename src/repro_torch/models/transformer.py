@@ -2,11 +2,14 @@
 
 Port of ``src/repro/models/transformer.py``. One class serves the dense,
 moe, ssm and hybrid families. The reference's ``lax.scan`` over the
-stacked layer dim is a Python loop that indexes the ``[L, ...]`` params;
-a hybrid walks its pattern *cycles* (params ``cycles/slot{i}`` stacked
-``[nc, ...]``) and then the unrolled remainder (``rest{i}``), the
-reference's tree exactly, so :func:`repro_torch.convert.lm_params_from_numpy`
-carries a reference param tree across unchanged. Encoder-decoder models
+stacked layer dim is a Python loop over the ``[L, ...]`` params, each
+stack cut once into its layers by :func:`unstack` (one ``torch.unbind`` a
+leaf, so a leaf's gradient is one ``stack``, not a whole-stack zero-fill
+and add per layer as indexing gives); a hybrid walks its pattern
+*cycles* (params ``cycles/slot{i}`` stacked ``[nc, ...]``) and then the
+unrolled remainder (``rest{i}``), the reference's tree exactly, so
+:func:`repro_torch.convert.lm_params_from_numpy` carries a reference
+param tree across unchanged. Encoder-decoder models
 are a class of their own (:mod:`repro_torch.models.encdec`).
 
 Remat: where the reference wraps its scan body in ``jax.checkpoint``
@@ -103,11 +106,24 @@ class DecodeState:
     index: int
 
 
-def layer_params(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s params (views) from a tree of stacked ``[L, ...]``
-    tensors (DTensors too: their ``"layers"`` dim is never split)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stacked.items()}
+def unstack(stacked: dict, n: int) -> List[dict]:
+    """The ``n`` layers' params (views) from a tree of stacked ``[L, ...]``
+    tensors, cut once: one ``torch.unbind`` a leaf (DTensors too: their
+    ``"layers"`` dim is never split). A leaf's gradient is then one
+    ``stack`` of its layers' gradients. Indexing ``v[i]`` layer by layer
+    instead makes each layer's gradient a zero-filled tensor the size of
+    the whole stack (``select``'s backward), which autograd adds into the
+    leaf's: ``n`` fills and ``n - 1`` adds of every stacked leaf."""
+    def cut(t):
+        return {k: cut(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in t.items()}
+
+    def pick(t, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in t.items()}
+
+    pieces = cut(stacked)
+    return [pick(pieces, i) for i in range(n)]
 
 
 def copy_state(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -209,18 +225,20 @@ class LM:
 
     def _layers(self, params) -> List[Tuple[str, dict]]:
         """(kind, params) of every layer in order: for a hybrid, cycle by
-        cycle through the pattern's slots, then the remainder."""
+        cycle through the pattern's slots, then the remainder. Each stack
+        is cut once (:func:`unstack`), here, outside the remat units, so a
+        unit's recompute reads the same views."""
         cfg = self.cfg
         if not cfg.block_pattern:
             n = cfg.first_dense_layers
-            return [(self.kinds[0], layer_params(params["dense_layers"], i))
-                    for i in range(n)] + [
-                (self.kinds[0], layer_params(params["layers"], i))
-                for i in range(cfg.num_layers - n)]
+            stacks = ((unstack(params["dense_layers"], n) if n else [])
+                      + unstack(params["layers"], cfg.num_layers - n))
+            return [(self.kinds[0], p) for p in stacks]
         pat = cfg.block_pattern
         nc = cfg.num_layers // len(pat)
-        out = [(k, layer_params(params["cycles"][f"slot{i}"], c))
-               for c in range(nc) for i, k in enumerate(pat)]
+        slots = [unstack(params["cycles"][f"slot{i}"], nc)
+                 for i in range(len(pat))]
+        out = [(k, slots[i][c]) for c in range(nc) for i, k in enumerate(pat)]
         i = 0
         while f"rest{i}" in params:
             out.append((pat[i], params[f"rest{i}"]))

@@ -481,6 +481,78 @@ def lshard_cases(rank, world):
     return out
 
 
+def unstack_cases(rank, world, archs):
+    """For each arch and each mesh of the world's ranks, (world, 1) and
+    (1, world): whether ``unstack`` gave every layer's piece of every
+    stacked DTensor leaf its leaf's placements (a ``Shard`` one tensor dim
+    lower) and its local slice, and the largest gap between the train
+    step's gradients (remat ``"full"``) on the mesh and off it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import (axis_rules, shard_params,
+                                                  rules_for_config,
+                                                  tree_shardings)
+    from repro_torch.models import batch_axes, build_model
+    from repro_torch.models.transformer import unstack
+    from repro_torch.training.step import _loss_and_grads
+
+    def stacks(tree):
+        for k in ("layers", "enc_layers", "dec_layers"):
+            if k in tree:
+                yield tree[k]
+        yield from tree.get("cycles", {}).values()
+
+    def lower(p):
+        return Shard(p.dim - 1) if isinstance(p, Shard) else p
+
+    out = {}
+    rng = np.random.default_rng(13)
+    for arch in archs:
+        cfg = smoke_config(arch).replace(remat_policy="full")
+        m = build_model(cfg, attn_impl="naive")
+        params = m.init(torch.Generator().manual_seed(0))
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 32)))}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (4, 32, cfg.d_model)).astype(np.float32))
+        want = [g.numpy() for g in _loss_and_grads(m, params, batch)[2]]
+        rules = rules_for_config(cfg)
+        for shape in ((world, 1), (1, world)):
+            mesh = init_device_mesh("cpu", shape,
+                                    mesh_dim_names=("data", "model"))
+            with axis_rules(rules, mesh=mesh):
+                sp = shard_params(params, mesh, m.param_axes(), rules)
+                placed, split = True, 0
+                for tree in stacks(sp):
+                    n = _leaves(tree)[0].shape[0]
+                    for i, layer in enumerate(unstack(tree, n)):
+                        for leaf, piece in zip(_leaves(tree),
+                                               _leaves(layer)):
+                            split += any(isinstance(p, Shard)
+                                         for p in leaf.placements)
+                            placed &= (
+                                isinstance(piece, DTensor)
+                                and Shard(0) not in leaf.placements
+                                and piece.placements == tuple(
+                                    lower(p) for p in leaf.placements)
+                                and torch.equal(piece.to_local(),
+                                                leaf.to_local()[i]))
+                bp = tree_shardings(mesh, batch_axes(cfg), rules)
+                sb = {k: distribute_tensor(v, mesh, bp[k],
+                                           src_data_rank=None)
+                      for k, v in batch.items()}
+                got = _loss_and_grads(m, sp, sb)[2]
+            out[(arch, shape)] = {
+                "placed": placed, "split": split,
+                "grad_gap": max(float(np.abs(g.full_tensor().numpy()
+                                             - w).max())
+                                for g, w in zip(got, want))}
+    return out
+
+
 def moe_one_rank(rank, world, cfgs, p_np, x_np):
     """``moe_apply`` for each config on a (1, 1) mesh (the EP branch), and
     with a serving mesh that has no "model" axis (the local path)."""

@@ -9,6 +9,10 @@ sharded train step, expert-parallel MoE and ``launch/train.py --mesh``.
 - ``lshard``: a no-op without rules, ``to_placements``' placements on a
   DTensor, a rank mismatch refused (a 1-rank gloo group).
 - ``kv_head_slice``: every (Hq, Hkv, tp) a registered config allows.
+- ``unstack`` in a 2-rank gloo group on (2, 1) and (1, 2) meshes
+  (danube, recurrentgemma's cycles, whisper's two stacks): each layer's
+  piece keeps its DTensor leaf's placements and local slice; the train
+  step's gradients (remat ``"full"``) equal the unsharded ones at 1e-5.
 - One module-scoped 4-rank gloo group (spawned ranks, no jax) runs the
   reference test's case on a (2, 2) mesh: granite-3-8b smoke, 2 layers,
   ``ShapeConfig('s', 32, 8, 'train')``. The port's sharded step is held to
@@ -186,6 +190,29 @@ def test_lshard_places_a_dtensor(tmp_path):
     assert out["partial_value"] == pytest.approx(6.0)
     assert "rank" in out["rank_error"]
     assert out["no_rules_same"]
+
+
+CUT_ARCHS = ("h2o-danube-1.8b", "recurrentgemma-9b", "whisper-medium")
+
+
+@pytest.fixture(scope="module")
+def cut_world(tmp_path_factory):
+    return W.run_group(W.unstack_cases, 2, tmp_path_factory.mktemp("cut"),
+                       CUT_ARCHS, timeout=GROUP_TIMEOUT_S)[0]
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+@pytest.mark.parametrize("arch", CUT_ARCHS)
+def test_unstack_keeps_placements_and_grads_on_a_2_device_mesh(
+        cut_world, arch, shape):
+    """Each stack cut once on a 2-device mesh: every layer's piece of a
+    stacked DTensor leaf keeps its leaf's placements (the layers dim is
+    never split) and its local slice, and the train step's gradients
+    equal the unsharded ones at 1e-5."""
+    r = cut_world[(arch, shape)]
+    assert r["placed"]
+    assert r["split"] > 0           # some stacked leaf is split on the mesh
+    assert r["grad_gap"] < SELF_TOL, r["grad_gap"]
 
 
 # -- the GQA kv-head slice ---------------------------------------------------

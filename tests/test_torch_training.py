@@ -12,6 +12,7 @@ leaf uses 1.1% of that bound, recurrentgemma's embedding); one train
 step's params and metrics at 1e-5 (AdamW's first step moves each weight
 by about lr, 1e-3, so 1e-5 is 1% of the move).
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -30,6 +31,7 @@ from repro.training import OptimizerConfig as JOptCfg  # noqa: E402
 from repro.training import init_state as jinit_state  # noqa: E402
 from repro.training import make_train_step as jmake_train_step  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs.base import MLAConfig  # noqa: E402
 from repro_torch.convert import (adamw_state_from_numpy,  # noqa: E402
                                  lm_params_from_numpy)
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
@@ -236,6 +238,89 @@ def test_remat_recomputes_only_while_autograd_records(monkeypatch):
     assert calls == []
     _grads(m, params, {"tokens": toks})
     assert len(calls) == cfg.num_layers
+
+
+# -- the stacked leaves, cut once ----------------------------------------------
+
+# the param trees stacked [L, ...] over the layers
+STACKS = ("dense_layers", "layers", "cycles", "enc_layers", "dec_layers")
+
+
+def _cut_once_cfg(case):
+    """The smoke configs of each layout of stacks: a dense LM; an MoE with
+    a dense first layer and latent attention (Moonlight's layout, sigmoid
+    routing, a shared expert); a hybrid of two cycles and a remainder;
+    the encoder-decoder."""
+    if case == "moe_mla":
+        cfg = smoke_config("olmoe-1b-7b")
+        return cfg.replace(
+            num_layers=3, first_dense_layers=1,
+            mla=MLAConfig(kv_lora_rank=32, qk_nope_head_dim=32,
+                          qk_rope_head_dim=16, v_head_dim=16),
+            moe=dataclasses.replace(
+                cfg.moe, scoring="sigmoid", num_shared_experts=1,
+                routed_scaling=2.5,
+                selection_bias=tuple(0.01 * i for i in range(8))))
+    if case == "hybrid":
+        return smoke_config("recurrentgemma-9b").replace(num_layers=7)
+    return smoke_config(case)
+
+
+def _select_each_layer(stacked, n):
+    """The route the cut replaced: layer i as ``v[i]`` of every leaf."""
+    def pick(t, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in t.items()}
+    return [pick(stacked, i) for i in range(n)]
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["h2o-danube-1.8b", "moe_mla", "hybrid",
+                                  "whisper-medium"])
+def test_stacked_leaves_are_cut_once(monkeypatch, case, dtype, remat):
+    """Each stacked leaf reaches the loss through exactly one
+    ``UnbindBackward0`` and no ``SelectBackward0``, and its gradient is
+    ``torch.equal`` to the one of the ``v[i]`` route (whose backward
+    zero-fills and adds a whole stack a layer: adding zeros is exact)."""
+    from repro_torch.models import encdec, transformer
+    cfg = _cut_once_cfg(case).replace(dtype=dtype, param_dtype=dtype,
+                                      remat_policy=remat)
+    model = build_model(cfg, attn_impl="naive")
+    params = model.init(torch.Generator().manual_seed(0))
+    b = _tbatch(_batch("whisper-medium" if case == "whisper-medium"
+                       else "h2o-danube-1.8b", seed=9, S=32))
+
+    tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss(tracked, b)
+    stacked = tree_leaves({k: tracked[k] for k in STACKS if k in tracked})
+    assert stacked
+    feeds = {}    # a leaf -> the names of the nodes whose gradient it sums
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is None:
+                continue
+            if hasattr(nxt, "variable"):
+                feeds.setdefault(id(nxt.variable), []).append(node.name())
+            todo.append(nxt)
+    for leaf in stacked:
+        assert feeds[id(leaf)] == ["UnbindBackward0"], feeds[id(leaf)]
+    leaves = tree_leaves(tracked)
+    got = torch.autograd.grad(loss, leaves)
+
+    monkeypatch.setattr(transformer, "unstack", _select_each_layer)
+    monkeypatch.setattr(encdec, "unstack", _select_each_layer)
+    tracked2 = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss2, _ = model.loss(tracked2, b)
+    want = torch.autograd.grad(loss2, tree_leaves(tracked2))
+    assert torch.equal(loss.detach(), loss2.detach())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 # -- the kernels' autograd Functions -------------------------------------------
