@@ -2829,8 +2829,8 @@ def flash_backward_timings(dev):
     twin (``ref.flash_attention_backward_ref``) fed the kernel's own o and
     lse, one batch row at a time, within one bf16 ulp plus 1e-3 of the
     largest gradient (the bound of the CUDA test against the twin); the gap
-    to the plain chunked backward, which differentiates its own float32
-    recompute, is printed. Then timed plain, kernel, kernel, plain, and
+    to the plain chunked backward, which runs the twin on its own float32
+    recompute of o and lse, is printed. Then timed plain, kernel, kernel, plain, and
     autograd through SDPA as the library yardstick (the port never calls
     it). Bound: the five products, 2 (3 D + 2 Dv) FLOPs a pair in the band
     (10 D where Dv = D), or the bytes of q, k, v, o, dO, lse read and dq,

@@ -50,12 +50,15 @@ the inputs are:
   backward is); a deterministic dq would need a partial sum a key tile
   and an ordered reduction.
 - float32 (which serves the correctness checks and needs exact f32
-  parity) and CPU tensors: the plain version, differentiated by autograd.
-  It holds [B, Hq, rows, Sk] float32 scores, so it is recomputed in chunks
-  of query rows (:func:`_backward_rows`: about ``BACKWARD_SCORES`` scores
-  a chunk, 1 GiB in float32), each chunk against the keys its rows can
-  reach (up to its last row when causal), summing the chunks' k and v
-  gradients.
+  parity) and CPU tensors: the kernel's closed form in plain float32, its
+  twin :func:`repro_torch.kernels.ref.flash_attention_backward_ref`, in
+  chunks of query rows (no autograd through a recompute). It holds
+  [B, Hq, rows, Sk] float32 scores, so a chunk takes about
+  ``BACKWARD_SCORES`` scores (:func:`_backward_rows`, 1 GiB in float32)
+  and the keys its rows can reach (up to its last row when causal): the
+  chunk's o and lse recomputed by the plain forward, then the twin, which
+  gives the chunk's rows of dq and adds its share of dk and dv, summed in
+  float32 and rounded once.
 
 The whole backward is the span ``flash_attention.backward``
 (:mod:`repro_torch.tracing`), on the CPU as on the card.
@@ -68,7 +71,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_backward_ref,
+                                    flash_attention_ref)
 from repro_torch.tracing import span
 
 MAX_HEAD_DIM = 256
@@ -202,37 +206,28 @@ class FlashAttentionFunction(torch.autograd.Function):
         Sk = k.shape[2]
         rows = _backward_rows(B, Hq, Sk)
         f32 = torch.float32
-        dq = torch.empty_like(q) if need[0] else None
-        dk = torch.zeros(k.shape, dtype=f32, device=k.device) if need[1] \
-            else None
-        dv = torch.zeros(v.shape, dtype=f32, device=v.device) if need[2] \
-            else None
-        with torch.enable_grad():
-            # float32 leaves: the plain version computes in float32, so its
-            # gradients are float32 and round once, at the end
-            ks = k.detach().to(f32).requires_grad_(need[1])
-            vs = v.detach().to(f32).requires_grad_(need[2])
-            for lo in range(0, Sq, rows):
-                hi = min(lo + rows, Sq)
-                reach = min(hi, Sk) if ctx.causal else Sk
-                qs = q[:, :, lo:hi].detach().to(f32).requires_grad_(need[0])
-                o = flash_attention_ref(qs, ks[:, :, :reach], vs[:, :, :reach],
-                                        causal=ctx.causal, window=ctx.window,
-                                        q_offset=lo)
-                wrt = [t for t, n in zip((qs, ks, vs), need) if n]
-                got = iter(torch.autograd.grad(o, wrt,
-                                               do[:, :, lo:hi].to(f32)))
-                if need[0]:
-                    dq[:, :, lo:hi] = next(got)
-                if need[1]:
-                    dk += next(got)
-                if need[2]:
-                    dv += next(got)
-        if need[1]:
-            dk = dk.to(k.dtype)
-        if need[2]:
-            dv = dv.to(v.dtype)
-        return dq, dk, dv, None, None
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+        # float32 inputs: the chunks' gradients are float32 and round once,
+        # at the end
+        kf, vf = k.detach().to(f32), v.detach().to(f32)
+        for lo in range(0, Sq, rows):
+            hi = min(lo + rows, Sq)
+            reach = min(hi, Sk) if ctx.causal else Sk
+            qs = q[:, :, lo:hi].detach().to(f32)
+            ks, vs = kf[:, :, :reach], vf[:, :, :reach]
+            o, lse = flash_attention_ref(qs, ks, vs, causal=ctx.causal,
+                                         window=ctx.window, q_offset=lo,
+                                         return_lse=True)
+            gq, gk, gv = flash_attention_backward_ref(
+                qs, ks, vs, o, lse, do[:, :, lo:hi].to(f32),
+                causal=ctx.causal, window=ctx.window, q_offset=lo)
+            dq[:, :, lo:hi] = gq
+            dk[:, :, :reach] += gk
+            dv[:, :, :reach] += gv
+        return (dq if need[0] else None, dk.to(k.dtype) if need[1] else None,
+                dv.to(v.dtype) if need[2] else None, None, None)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -58,14 +58,19 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, o: torch.Tensor,
                                  lse: torch.Tensor, do: torch.Tensor, *,
                                  causal: bool = True,
-                                 window: Optional[int] = None):
+                                 window: Optional[int] = None,
+                                 q_offset: int = 0):
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` in the form
     the backward kernel computes them: the probabilities recomputed from the
     forward's ``lse`` [B, Hq, Sq], ``P = exp(s - lse)`` in the band and 0
     outside, ``delta = rowsum(do o)``, ``dS = P (do v^T - delta)``, ``dv =
     P^T do``, ``dk = dS^T q D^-0.5``, ``dq = dS k D^-0.5``, the G q heads of
     a kv head summed into its dk and dv. v, o and do may be ``Dv`` wide
-    where q and k are D. Math in float32; each gradient in its input's
+    where q and k are D. Query positions start at ``q_offset``, as in
+    :func:`flash_attention_ref`: a chunk of query rows passes its first
+    row's position, its own o, lse and do, and the keys it reaches, and
+    gets its rows of dq and its share of dk and dv. Math in float32, two
+    score-sized buffers worked in place; each gradient in its input's
     dtype."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -74,12 +79,13 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
     qf = q.reshape(B, Hkv, G, Sq, D).to(f32)
     gf = do.reshape(B, Hkv, G, Sq, Dv).to(f32)
     kf, vf = k.to(f32), v.to(f32)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf * scale, kf)
-    p = torch.where(_band(Sq, Sk, causal, window, 0, q.device),
-                    torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1)), 0.0)
+    p = torch.einsum("bkgqd,bksd->bkgqs", qf * scale, kf)
+    p.sub_(lse.reshape(B, Hkv, G, Sq, 1)).exp_()
+    p.masked_fill_(~_band(Sq, Sk, causal, window, q_offset, q.device), 0.0)
     delta = (gf * o.reshape(B, Hkv, G, Sq, Dv).to(f32)).sum(-1, keepdim=True)
-    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", gf, vf) - delta)
+    ds = torch.einsum("bkgqd,bksd->bkgqs", gf, vf).sub_(delta).mul_(p)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, gf)
+    del p
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
     return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),

@@ -653,32 +653,61 @@ def test_cuda_flash_attention_grads_match_plain_autograd(
             1.0, float(b.float().abs().max())))
 
 
+def _latent_qkv(B, H, S, seed, dev, dtype):
+    """Latent attention's q, k [B, H, S, 192] and v [B, H, S, 128] in the
+    model's layout: q and k [B, S, H, 192] tensors, v the last 128 columns
+    of each head of the [B, S, H, 256] up-projection, all seen through
+    transpose(1, 2)."""
+    q = _randn((B, S, H, 192), seed, dev, dtype)
+    k = _randn((B, S, H, 192), seed + 1, dev, dtype)
+    kv = _randn((B, S, H, 256), seed + 2, dev, dtype)
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
-    (1, 2, 1, 128, 128, 16, True, None), (2, 4, 2, 256, 256, 32, False, None),
-    (1, 4, 2, 100, 100, 48, True, 7), (2, 8, 1, 128, 128, 64, True, None),
-    (1, 4, 2, 37, 37, 80, True, 16), (1, 32, 8, 1024, 1024, 80, True, 4096),
-    (2, 4, 2, 200, 200, 96, False, 33), (1, 8, 2, 300, 300, 128, True, 64),
-    (1, 16, 16, 448, 1500, 64, False, None), (1, 4, 4, 150, 64, 64, False,
-                                               None),
-    (1, 2, 2, 1, 1, 80, True, None), (1, 8, 1, 320, 320, 256, True, 96),
-    (1, 4, 2, 130, 130, 200, False, None), (2, 16, 16, 500, 500, 80, False,
-                                            None)])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,Dv,causal,window", [
+    (1, 2, 1, 128, 128, 16, 16, True, None),
+    (2, 4, 2, 256, 256, 32, 32, False, None),
+    (1, 4, 2, 100, 100, 48, 48, True, 7),
+    (2, 8, 1, 128, 128, 64, 64, True, None),
+    (1, 4, 2, 37, 37, 80, 80, True, 16),
+    (1, 32, 8, 1024, 1024, 80, 80, True, 4096),
+    (2, 4, 2, 200, 200, 96, 96, False, 33),
+    (1, 8, 2, 300, 300, 128, 128, True, 64),
+    (1, 16, 16, 448, 1500, 64, 64, False, None),
+    (1, 4, 4, 150, 64, 64, 64, False, None),
+    (1, 2, 2, 1, 1, 80, 80, True, None),
+    (1, 8, 1, 320, 320, 256, 256, True, 96),
+    (1, 4, 2, 130, 130, 200, 200, False, None),
+    (2, 16, 16, 500, 500, 80, 80, False, None),
+    (1, 2, 2, 37, 37, 192, 128, True, None),
+    (2, 4, 4, 300, 300, 192, 128, False, None),
+    (1, 4, 4, 200, 200, 192, 128, True, 33),
+    (1, 16, 16, 1024, 1024, 192, 128, True, None),
+    (1, 4, 4, 2048, 2048, 192, 128, True, None)])
 def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
-                                                 Sk, D, causal, window):
+                                                 Sk, D, Dv, causal, window):
     """The backward kernel against its plain twin on the same bf16 inputs,
-    o and lse (the kernel's forward): both compute in float32 and round
-    once, so within one bf16 ulp plus 1e-3 of the largest gradient (the
-    kernel's P and dS carried as bf16 hi + lo, ~2^-17 relative). The lse
-    within 1e-4 of the plain version's; the forward's output the same with
-    and without it."""
+    o and lse (the kernel's forward), at every instance: values as wide as
+    q.k, and latent attention's (192, 128) in the model's layout (v a slice
+    of the up-projection, dv in v's shape). Both compute in float32 and
+    round once, so within one bf16 ulp plus 1e-3 of the largest gradient
+    (the kernel's P and dS carried as bf16 hi + lo, ~2^-17 relative). The
+    lse within 1e-4 of the plain version's; the forward's output the same
+    with and without it."""
     from repro_torch.kernels.flash_attention import _launch, _launch_backward
     from repro_torch.kernels.ref import flash_attention_backward_ref
     bf = torch.bfloat16
-    q = _randn((B, Sq, Hq, D), 1, cuda_device, bf).transpose(1, 2)
-    k = _randn((B, Sk, Hkv, D), 2, cuda_device, bf).transpose(1, 2)
-    v = _randn((B, Sk, Hkv, D), 3, cuda_device, bf).transpose(1, 2)
-    do = _randn((B, Hq, Sq, D), 4, cuda_device, bf)
+    if Dv == D:
+        q = _randn((B, Sq, Hq, D), 1, cuda_device, bf).transpose(1, 2)
+        k = _randn((B, Sk, Hkv, D), 2, cuda_device, bf).transpose(1, 2)
+        v = _randn((B, Sk, Hkv, D), 3, cuda_device, bf).transpose(1, 2)
+        do = _randn((B, Hq, Sq, D), 4, cuda_device, bf)
+    else:
+        assert (Hq, Sq, D, Dv) == (Hkv, Sk, 192, 128)
+        q, k, v = _latent_qkv(B, Hq, Sq, 11, cuda_device, bf)
+        do = _randn((B, Hq, Sq, Dv), 14, cuda_device, bf)
     o, lse = _launch(q, k, v, causal, window, with_lse=True)
     assert torch.equal(o, _launch(q, k, v, causal, window))
     _, want_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -692,20 +721,10 @@ def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
     want = flash_attention_backward_ref(q, k, v, o, lse[..., :Sq], do,
                                         causal=causal, window=window)
     for a, b, t in zip(got, want, (q, k, v)):
-        assert a.stride() == t.stride()
+        assert a.shape == t.shape
+        if Dv == D:
+            assert a.stride() == t.stride()
         _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
-
-
-def _latent_qkv(B, H, S, seed, dev, dtype):
-    """Latent attention's q, k [B, H, S, 192] and v [B, H, S, 128] in the
-    model's layout: q and k [B, S, H, 192] tensors, v the last 128 columns
-    of each head of the [B, S, H, 256] up-projection, all seen through
-    transpose(1, 2)."""
-    q = _randn((B, S, H, 192), seed, dev, dtype)
-    k = _randn((B, S, H, 192), seed + 1, dev, dtype)
-    kv = _randn((B, S, H, 256), seed + 2, dev, dtype)
-    return (q.transpose(1, 2), k.transpose(1, 2),
-            kv[..., 128:].transpose(1, 2))
 
 
 @pytest.mark.cuda
@@ -729,37 +748,6 @@ def test_cuda_flash_attention_latent_widths(cuda_device, dtype, B, H, S,
                                    v[:, h:h + 1], causal=causal,
                                    window=window)
         _assert_close(got[:, h:h + 1], want, dtype, ATTN_TOL[dtype])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,S,causal,window", [
-    (1, 2, 37, True, None), (2, 4, 300, False, None), (1, 4, 200, True, 33),
-    (1, 16, 1024, True, None), (1, 4, 2048, True, None)])
-def test_cuda_flash_backward_latent_widths_match_twin(cuda_device, B, H, S,
-                                                      causal, window):
-    """The (192, 128) backward instance against its plain twin fed the
-    kernel's own o and lse, at the bound of the equal-width instances
-    (one bf16 ulp plus 1e-3 of the largest gradient); dv 128 wide in v's
-    layout."""
-    from repro_torch.kernels.flash_attention import _launch, _launch_backward
-    from repro_torch.kernels.ref import flash_attention_backward_ref
-    bf = torch.bfloat16
-    q, k, v = _latent_qkv(B, H, S, 11, cuda_device, bf)
-    do = _randn((B, H, S, 128), 14, cuda_device, bf)
-    o, lse = _launch(q, k, v, causal, window, with_lse=True)
-    assert torch.equal(o, _launch(q, k, v, causal, window))
-    _, want_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
-    torch.testing.assert_close(lse[..., :S], want_lse, rtol=0, atol=1e-4)
-    before = flash_attention.backward_launch_count
-    got = _launch_backward(q, k, v, o, lse, do, causal, window)
-    torch.cuda.synchronize()
-    assert flash_attention.backward_launch_count == before + 1
-    want = flash_attention_backward_ref(q, k, v, o, lse[..., :S], do,
-                                        causal=causal, window=window)
-    for a, b, t in zip(got, want, (q, k, v)):
-        assert a.shape == t.shape
-        _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
 
 
 @pytest.mark.cuda

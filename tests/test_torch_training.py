@@ -350,19 +350,21 @@ def test_rmsnorm_function_grads_equal_plain_autograd():
     (True, None, 200, 200), (True, 48, 200, 200), (False, None, 64, 150),
     (False, None, 150, 64), (False, 33, 130, 130)])
 @pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (24, 16)])
 def test_flash_function_grads_equal_plain_autograd(monkeypatch, causal,
-                                                   window, Sq, Sk, chunked):
+                                                   window, Sq, Sk, chunked,
+                                                   D, Dv):
     """The Function's backward against autograd through the plain version,
-    on the model's strided [B, S, H, D] views; ``chunked`` cuts the
-    backward into 64-row chunks of queries, whose k and v gradients are
-    summed in another order (atol 1e-5 on gradients up to ~5; measured
-    2.4e-6)."""
+    on the model's strided [B, S, H, D] views, values as wide as q.k or
+    narrower; ``chunked`` cuts the backward into 64-row chunks of queries,
+    whose k and v gradients are summed in another order (atol 1e-5 on
+    gradients up to ~6; measured 2.9e-6)."""
     if chunked:
         monkeypatch.setattr(flash_mod, "BACKWARD_SCORES", 1)
-    B, Hq, Hkv, D = 2, 4, 2, 16
+    B, Hq, Hkv = 2, 4, 2
     q = _dense((B, Sq, Hq, D), 3)
-    k, v = _dense((B, Sk, Hkv, D), 4), _dense((B, Sk, Hkv, D), 5)
-    do = _dense((B, Hq, Sq, D), 6)
+    k, v = _dense((B, Sk, Hkv, D), 4), _dense((B, Sk, Hkv, Dv), 5)
+    do = _dense((B, Hq, Sq, Dv), 6)
 
     def views():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
