@@ -109,10 +109,12 @@ Phases, each raising on failure (the script then exits non-zero):
    holds each kernel's event count to a whole multiple of the calls
    (once more, then it raises), so a trace that lost events is not read.
    Then the bf16 flash backward kernel at danube-train's, whisper's
-   encoder, olmoe's and gemma-2b's training shapes
+   encoder, olmoe's, gemma-2b's and moonlight-train-8k's training shapes
    (``flash_backward_timings``), held to its plain twin fed the kernel's
    own o and lse, beside the plain chunked backward and autograd through
-   SDPA;
+   SDPA, after each kernel's registers, shared memory and spills; with
+   ``--flash-parent DIR`` (another tree's ``kernels/csrc``) also that
+   tree's backward, timed in turns with this one;
 9. (run before 8) whisper-medium (arXiv:2212.04356) at full width and
    depth, nothing cut (24 + 24 layers, d 1024, 16 heads of 64, random
    weights from ``--seed``): a float32 copy, B 2 x 1500 frames, a 440-token
@@ -193,10 +195,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -2823,28 +2827,69 @@ FLASH_BWD_CELLS = (
     ("moonlight_train", 2, 16, 16, 8192, 8192, 192, True, None, 128))
 
 
-def flash_backward_timings(dev):
+def _flash_backward_build(dev, parent_csrc):
+    """Log each flash backward kernel's registers, stack and spills
+    (ptxas) and each row's main kernel's registers and shared memory
+    (``flash_attention_backward_attributes``); return the C entry point of
+    the backward built from ``parent_csrc`` (another tree's
+    ``kernels/csrc``), or None without it."""
+    from repro_torch.kernels import _build
+    for name, rep in _build.ptxas_report("flash_attention_backward").items():
+        if "flash_bwd" in name:
+            log(f"ptxas {name}: {rep}")
+    attrs = _build.Query("flash_attention_backward",
+                         "flash_attention_backward_attributes",
+                         [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)])
+    for label, *shape in FLASH_BWD_CELLS:
+        D = shape[5]
+        Dv = shape[8] if len(shape) > 8 else D
+        out = (ctypes.c_int * 4)()
+        check(attrs(dev, D, Dv, out) == 0, f"attributes of ({D}, {Dv})")
+        log(f"flash backward {label} ({D}, {Dv}): {out[0]} registers a "
+            f"thread at launch, {out[1]} static + {out[3]} dynamic shared "
+            f"bytes, {out[2]} local bytes a thread")
+    if parent_csrc is None:
+        return None
+    lib = Path(tempfile.mkdtemp()) / "flash_attention_backward_parent.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(Path(parent_csrc) / "flash_attention_backward.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).flash_attention_backward
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_backward_timings(dev, parent_csrc=None):
     """The bf16 flash backward kernel (one launch: delta, the main kernel,
     dq's conversion) at each ``FLASH_BWD_CELLS`` shape: held to its plain
     twin (``ref.flash_attention_backward_ref``) fed the kernel's own o and
     lse, one batch row at a time, within one bf16 ulp plus 1e-3 of the
     largest gradient (the bound of the CUDA test against the twin); the gap
     to the plain chunked backward, which runs the twin on its own float32
-    recompute of o and lse, is printed. Then timed plain, kernel, kernel, plain, and
-    autograd through SDPA as the library yardstick (the port never calls
-    it). Bound: the five products, 2 (3 D + 2 Dv) FLOPs a pair in the band
-    (10 D where Dv = D), or the bytes of q, k, v, o, dO, lse read and dq,
-    dk, dv written once."""
+    recompute of o and lse, is printed. Then timed plain, kernel, kernel,
+    plain, and autograd through SDPA as the library yardstick (the port
+    never calls it); with ``parent_csrc`` (another tree's
+    ``kernels/csrc``, the same C interface), also that tree's backward in
+    turns with this one (parent, this, this, parent; CUDA events and
+    device time). Bound: the five products, 2 (3 D + 2 Dv) FLOPs a pair in
+    the band (10 D where Dv = D), or the bytes of q, k, v, o, dO, lse read
+    and dq, dk, dv written once. The kernels' registers, shared memory and
+    spills are logged first."""
     import torch.nn.functional as F
     from types import SimpleNamespace
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
+    from repro_torch.kernels.flash_attention import (_BACKWARD,
+                                                     FlashAttentionFunction,
                                                      _launch,
                                                      _launch_backward)
     from repro_torch.kernels.ref import flash_attention_backward_ref
     bf = torch.bfloat16
+    parent = _flash_backward_build(dev, parent_csrc)
+    if parent is not None:
+        parent.argtypes = _BACKWARD.argtypes
     g = torch.Generator(device="cpu").manual_seed(5)
     res = {}
     for label, B, Hq, Hkv, Sq, Sk, D, causal, window, *dv in \
@@ -2904,6 +2949,18 @@ def flash_backward_timings(dev):
         lib = time_ms(library, reps)
         dev_ms, events = device_ms(kernel, reps)
         lib_dev, _ = device_ms(library, reps)
+        turns = []
+        if parent is not None:
+            own = _BACKWARD._fn
+            for which in "PCCP":
+                _BACKWARD._fn = parent if which == "P" else own
+                try:
+                    turns.append((which, time_ms(kernel, reps),
+                                  device_ms(kernel, reps)[0]))
+                finally:
+                    _BACKWARD._fn = own
+            log(f"flash backward {label} in turns (parent P, this C; CUDA "
+                f"event ms, device ms): {turns}")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 kernel()
@@ -2918,7 +2975,8 @@ def flash_backward_timings(dev):
                       "library_ms": lib, "library_device_ms": lib_dev,
                       "bound_ms": b_ms, "bound_by": by,
                       "bound_share": b_ms / dev_ms, "max_err": errs,
-                      "max_err_plain": plain_errs, "kernels_ms": parts}
+                      "max_err_plain": plain_errs, "kernels_ms": parts,
+                      "turns_with_parent": turns}
         log(f"time flash backward {label} {res[label]['shape']}: device "
             f"{dev_ms:.5f} ms ({events} events a call: {parts}), kernel "
             f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, library "
@@ -2934,6 +2992,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--flash-parent", default=None,
+                    help="another tree's src/repro_torch/kernels/csrc: time "
+                         "its flash backward in turns with this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2987,7 +3048,7 @@ def main() -> int:
     tm = timings(fused_embed, fused_embed_ref, dev, mp["K"])
     sv = lm["serve"]
     lt = lm_timings(dev, sv["slots"], sv["prompt"], sv["gen"])
-    fb = flash_backward_timings(dev)
+    fb = flash_backward_timings(dev, args.flash_parent)
 
     kernels = [{
         "name": "fused_embed", "route": "cuda",

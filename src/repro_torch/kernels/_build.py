@@ -5,15 +5,16 @@ into ``build/<name>-<hash>.so`` beside this file (the directory is listed
 in ``.gitignore``), with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v
 
-The hash covers the source, every shared header ``csrc/*.cuh`` and the
-flags, so an edited kernel or header rebuilds and an unchanged one is
-reused. A library is built and loaded at most once per
-process, under a lock, because the pipeline executor calls the kernels from
-several threads. Nothing here runs at import: the first launch (or
-:func:`build_all`) builds. There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+and keeps ptxas's report of each kernel (registers, stack, spills) in
+``build/<name>-<hash>.log`` (:func:`ptxas_report`). The hash covers the
+source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+kernel or header rebuilds and an unchanged one is reused. A library is
+built and loaded at most once per process, under a lock, because the
+pipeline executor calls the kernels from several threads. Nothing here
+runs at import: the first launch (or :func:`build_all`) builds. There is
+no fallback: a missing ``nvcc`` or a failed build raises.
 
 :class:`Kernel` is what every wrapper shares around its launch: the device
 check, the current stream, the CUDA error and the launch count.
@@ -37,7 +38,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
@@ -79,8 +80,31 @@ def _compile(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     tmp.replace(out)
     return out
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's report of each kernel of ``csrc/<name>.cu`` as built (the
+    library is built first if it is not): ``{mangled name: {"registers",
+    "stack", "spill_stores", "spill_loads"}}``."""
+    lines = _compile(name).with_suffix(".log").read_text().splitlines()
+    report: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in lines:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            report[entry] = {}
+        elif entry is not None and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            report[entry].update(stack=nums[0], spill_stores=nums[1],
+                                 spill_loads=nums[2])
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            report[entry]["registers"] = int(words[words.index("Used") + 1])
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

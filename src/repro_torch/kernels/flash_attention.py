@@ -38,17 +38,20 @@ goes through :class:`FlashAttentionFunction`, whose forward is the kernel
 backward (it trains over plain jnp); the port's has two, chosen by what
 the inputs are:
 
-- bfloat16 on the card: a hand-written FlashAttention-2 backward on the
-  tensor cores (``csrc/flash_attention_backward.cu``). The forward kernel
-  then also writes each query row's log-sum-exp, from which the backward
-  recomputes the probabilities tile by tile; no score matrix reaches
-  device memory. ``flash_attention.backward_launch_count`` counts its
-  launches (one a backward: delta, the main kernel and dq's conversion).
-  dq is summed in float32 by atomic adds in whatever order the blocks
-  finish, so its last bits, and with them a bfloat16 training step, are
-  not bit-reproducible from run to run for a given seed (the plain
-  backward is); a deterministic dq would need a partial sum a key tile
-  and an ordered reduction.
+- bfloat16 on the card: a hand-written FlashAttention-3-style backward
+  on Hopper's warpgroup MMAs fed by TMA
+  (``csrc/flash_attention_backward.cu``). The forward kernel then also
+  writes each query row's log-sum-exp, from which the backward recomputes
+  the probabilities tile by tile; no score matrix reaches device memory.
+  ``flash_attention.backward_launch_count`` counts its launches (one a
+  backward: delta, the main kernel and dq's conversion). Equal widths past
+  128 (gemma's 256) do not fit that kernel and run the older ``mma.sync``
+  one, which ``flash_attention.backward_fallback_count`` counts as well.
+  dq is summed in float32 in L2 (bulk reduce-adds; atomics in the older
+  kernel) in whatever order the blocks finish, so its last bits, and with
+  them a bfloat16 training step, are not bit-reproducible from run to run
+  for a given seed (the plain backward is); a deterministic dq would need
+  a partial sum a key tile and an ordered reduction.
 - float32 (which serves the correctness checks and needs exact f32
   parity) and CPU tensors: the kernel's closed form in plain float32, its
   twin :func:`repro_torch.kernels.ref.flash_attention_backward_ref`, in
@@ -91,6 +94,12 @@ _BACKWARD = _build.Kernel("flash_attention_backward",
                           + [ctypes.POINTER(ctypes.c_longlong)]
                           + [ctypes.c_int] * 10 + [ctypes.c_float],
                           counter="backward_launch_count")
+_SCRATCH_WIDTH = _build.Query("flash_attention_backward",
+                               "flash_attention_backward_scratch_width",
+                               [ctypes.c_int, ctypes.c_int])
+# (D, Dv) -> the width of the backward's dq tiles; 0 where the mma.sync
+# kernel runs (its scratch [B, Hq, Sq, D])
+_WIDTHS = {}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,7 +278,11 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty_like(lse)
-    dq_acc = torch.empty((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    width = _WIDTHS.get((D, Dv))
+    if width is None:
+        width = _WIDTHS.setdefault((D, Dv), _SCRATCH_WIDTH(q.device, D, Dv))
+    dq_acc = torch.empty(B * Hq * (lse.shape[-1] * width if width else Sq * D),
+                         dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     _BACKWARD.launch(flash_attention, q.device, q.data_ptr(), k.data_ptr(),
@@ -281,8 +294,12 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool,
                      int(window or 0), float(D ** -0.5),
                      what=lambda: f"backward q {tuple(q.shape)}, k "
                                   f"{tuple(k.shape)}")
+    if not width:
+        with _build._COUNT_LOCK:
+            flash_attention.backward_fallback_count += 1
     return dq, dk, dv
 
 
 flash_attention.launch_count = 0
 flash_attention.backward_launch_count = 0
+flash_attention.backward_fallback_count = 0

@@ -461,6 +461,36 @@ def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
     assert first.parent == tmp_path / "build"
 
 
+def test_ptxas_report_reads_each_kernel(tmp_path, monkeypatch):
+    """The build keeps ptxas's report beside the library; ptxas_report
+    reads each entry's registers, stack and spills from it (a library on
+    disk is not built again)."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// k\n")
+    lib = _build._library_path("k")
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 2 barriers, 384 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bPf\n"
+        "    64 bytes stack frame, 68 bytes spill stores, 96 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 456 bytes "
+        "cmem[0]\n")
+    assert _build.ptxas_report("k") == {
+        "_Z1aPf": {"registers": 168, "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0},
+        "_Z1bPf": {"registers": 255, "stack": 64, "spill_stores": 68,
+                   "spill_loads": 96}}
+
+
 # -- the launch plans of rmsnorm and fused_embed ----------------------------
 # The CUDA kernels walk rows (rmsnorm) or row tiles (fused_embed) over a
 # persistent grid the wrappers plan in Python; every row must be taken

@@ -685,7 +685,17 @@ def _latent_qkv(B, H, S, seed, dev, dtype):
     (2, 4, 4, 300, 300, 192, 128, False, None),
     (1, 4, 4, 200, 200, 192, 128, True, 33),
     (1, 16, 16, 1024, 1024, 192, 128, True, None),
-    (1, 4, 4, 2048, 2048, 192, 128, True, None)])
+    (1, 4, 4, 2048, 2048, 192, 128, True, None),
+    # one short of, one past and two past the 128-key tile
+    (1, 4, 2, 127, 127, 80, 80, True, None),
+    (1, 4, 2, 129, 129, 80, 80, False, None),
+    (2, 4, 1, 257, 257, 80, 80, True, 100),
+    (1, 2, 2, 127, 127, 192, 128, True, None),
+    (1, 2, 2, 129, 129, 192, 128, False, None),
+    (1, 2, 2, 257, 257, 192, 128, True, None),
+    (1, 8, 2, 129, 257, 64, 64, False, None),
+    # G 8 heads x 10 q tiles: up to 80 turns of the 2-stage ring a block
+    (1, 16, 2, 640, 640, 80, 80, True, None)])
 def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
                                                  Sk, D, Dv, causal, window):
     """The backward kernel against its plain twin on the same bf16 inputs,
@@ -725,6 +735,30 @@ def test_cuda_flash_backward_kernel_matches_twin(cuda_device, B, Hq, Hkv, Sq,
         if Dv == D:
             assert a.stride() == t.stride()
         _assert_close(a, b, bf, 1e-3 * max(1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv,fallback", [(80, 80, 0), (192, 128, 0),
+                                           (64, 64, 0), (256, 256, 1)])
+def test_cuda_flash_backward_counts_the_fallback(cuda_device, D, Dv,
+                                                  fallback):
+    """danube's and moonlight's widths run the Hopper kernel
+    (``backward_fallback_count`` unchanged); D 256 runs the mma.sync one
+    and is counted."""
+    from repro_torch.kernels.flash_attention import _launch, _launch_backward
+    bf = torch.bfloat16
+    q = _randn((1, 2, 200, D), 1, cuda_device, bf)
+    k = _randn((1, 2, 200, D), 2, cuda_device, bf)
+    v = _randn((1, 2, 200, Dv), 3, cuda_device, bf)
+    do = _randn((1, 2, 200, Dv), 4, cuda_device, bf)
+    o, lse = _launch(q, k, v, True, None, with_lse=True)
+    before = (flash_attention.backward_launch_count,
+              flash_attention.backward_fallback_count)
+    _launch_backward(q, k, v, o, lse, do, True, None)
+    torch.cuda.synchronize()
+    assert (flash_attention.backward_launch_count - before[0],
+            flash_attention.backward_fallback_count - before[1]) == (
+        1, fallback)
 
 
 @pytest.mark.cuda
